@@ -1,0 +1,513 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+  python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and no phase is skipped:
+
+  1. the card: ``nvidia-smi`` name and power limit, torch's device name;
+  2. build: every CUDA source of ``src/repro_torch`` with ``nvcc`` (one
+     process per source, all at once), printing ptxas register/smem lines;
+  3. kernels: each kernel's wrapper on the card at the main path's shapes,
+     held against its plain PyTorch version on the same inputs (bf16 in,
+     tolerance stated below), the paged kernel also against poisoned
+     trash/tail blocks; then timed with CUDA events over runs that cycle
+     through more inputs than the L2 holds, beside the plain version, the
+     library call where PyTorch has one, and the bound computed from the
+     shapes — at the main path's shapes and at one larger shape;
+  4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
+     seed 0), prefill and paged decode steps with the kernels, with the
+     plain path, and with the plain path in float32 on the same weights,
+     pools and tables; the kernel path must be no farther from float32
+     than twice the plain bf16 path;
+  5. serve: ``repro_torch.launch.serve.main`` — 16 requests of 512 prompt
+     and 64 output tokens, 1 prefill and 2 decode engines with 8 slots, the
+     elastic rate matcher — with every kernel's launch count set to 0 just
+     before and read just after; fails unless all 16 complete and each
+     kernel ran once per layer per prefill / decode step;
+  6. profile: one engine of the serve's shape, a prefill and a decode
+     step under ``torch.profiler`` (host-clock step time, device time,
+     idle share, the kernels that take the most time).
+
+The last three lines of standard output are the card's name and power
+limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
+...}``. Without a card, or without the repository beside this file, it
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+# bf16 outputs round at 2^-8 relative and the kernels round p to bf16 for
+# the tensor cores; the JAX package's bf16 kernel tests use the same bound
+KERNEL_ATOL = 2e-2
+L2_BYTES = 50 << 20                     # H100 SXM L2 cache
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+class Timer:
+    """Device time per call: CUDA events around a run of calls that cycle
+    through enough independent input sets to exceed twice the 50 MB L2, so
+    each call reads its inputs from HBM as it would on the main path (and
+    the card, not the host, sets the pace of the run). The median over
+    ``runs`` runs, divided by the calls in a run."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __call__(self, fn, cases, runs: int = 5) -> float:
+        torch = self.torch
+        for case in cases:                      # warm-up
+            fn(*case)
+        torch.cuda.synchronize()
+        per_call = []
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for case in cases:
+                fn(*case)
+            end.record()
+            torch.cuda.synchronize()
+            per_call.append(start.elapsed_time(end) / len(cases))
+        per_call.sort()
+        return per_call[len(per_call) // 2]
+
+
+def copies(nbytes: float) -> int:
+    """Input sets to cycle through: together at least twice the L2."""
+    return max(2, min(64, math.ceil(2 * L2_BYTES / nbytes)))
+
+
+def flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev):
+    dh = 128
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(  # noqa
+        torch.bfloat16)
+    return mk(B, Sq, H, dh), mk(B, Skv, Hkv, dh), mk(B, Skv, Hkv, dh)
+
+
+def flash_work(B, Sq, Skv, H, Hkv, q_offset):
+    dh = 128
+    pairs = sum(min(Skv, q_offset + i + 1) for i in range(Sq))  # causal
+    flops = 4.0 * B * H * dh * pairs
+    nbytes = 2.0 * dh * (2 * B * Sq * H + 2 * B * Skv * Hkv)
+    return flops, nbytes
+
+
+def paged_case(torch, gen, lengths, Bs, H, Hkv, dev, nb=None):
+    """Pool with every sequence's blocks at shuffled ids, and a table of
+    ``nb`` columns (default: the pow2 width the engine's window takes; pad
+    columns -> trash block 0)."""
+    dh = 128
+    B = len(lengths)
+    pages = [-(-n // Bs) for n in lengths]
+    if nb is None:
+        nb = 1
+        while nb * Bs < max(lengths):
+            nb *= 2
+    N = 1 + sum(pages)
+    pool_k = torch.randn((N, Bs, Hkv, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pool_v = torch.randn((N, Bs, Hkv, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ids = (torch.randperm(N - 1, generator=gen, device=dev) + 1).tolist()
+    tables = torch.zeros((B, nb), dtype=torch.int32)
+    for b, n in enumerate(pages):
+        tables[b, :n] = torch.tensor([ids.pop() for _ in range(n)])
+    q = torch.randn((B, H, dh), generator=gen, device=dev).to(torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, pool_k, pool_v, tables.to(dev), lens
+
+
+def paged_work(lengths, B, nb, H, Hkv):
+    dh = 128
+    live = float(sum(lengths))
+    flops = 4.0 * live * H * dh
+    nbytes = (2.0 * B * H * dh * 2            # q in, out
+              + 2.0 * 2 * live * Hkv * dh     # live K and V rows
+              + 4.0 * B * nb + 4.0 * B)       # tables, lengths
+    return flops, nbytes
+
+
+def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
+    """Full-width model check. Prefill one prompt, then run paged decode
+    steps for 4 slots that hold its cache, three ways on the same weights,
+    pools and tables: bf16 with the kernels, bf16 with the plain path, and
+    the plain path in float32 (weights upcast) as the reference. On random
+    weights, bf16 rounding compounds over 36 layers into logit errors of
+    a few percent whatever the attention, so the kernel path is held to
+    the plain bf16 path's own distance from the float32 reference: it
+    fails on non-finite logits, or on an error above twice the plain
+    path's plus 1e-3 of the logit scale."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import init_torch_params
+    params = init_torch_params(cfg, 0, device=dev)
+    p32 = {k: ([{n: t.float() for n, t in b.items()} for b in v]
+               if k == "blocks" else v.float()) for k, v in params.items()}
+    c32 = cfg.replace(dtype="float32")
+    Bs = 8
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+
+    def check(what, lk, lp, lr):
+        scale = lr.abs().max().item()
+        ek = (lk - lr).abs().max().item() / scale
+        ep = (lp - lr).abs().max().item() / scale
+        ok = bool(torch.isfinite(lk).all()) and ek <= 2 * ep + 1e-3
+        log(f"# model L={cfg.num_layers} {what}: max err vs fp32 / scale: "
+            f"kernel {ek:.3e}, plain bf16 {ep:.3e}; argmax kernel "
+            f"{lk.argmax(-1).tolist()} plain {lp.argmax(-1).tolist()} "
+            f"fp32 {lr.argmax(-1).tolist()}")
+        if not ok:
+            fail(f"{what}: kernel path error {ek} vs plain bf16 {ep}")
+
+    with torch.inference_mode():
+        lk, cache = T.prefill_full(params, cfg, {"tokens": prompt},
+                                   impl="kernel")
+        lp, _ = T.prefill_full(params, cfg, {"tokens": prompt}, impl="plain")
+        lr, cache32 = T.prefill_full(p32, c32, {"tokens": prompt},
+                                     impl="plain")
+        check(f"prefill S={S}", lk, lp, lr)
+        Lr, nbk, slots, extra = cfg.num_layers, S // Bs, 4, 8
+        width = 1
+        while width < nbk + extra:
+            width *= 2
+        n_blocks = 1 + Lr * slots * (nbk + extra)
+        pools = [T.init_block_pool(c, n_blocks, Bs, device=dev)
+                 for c in (cfg, cfg, c32)]
+        tables = torch.zeros((Lr, slots, width), dtype=torch.int32,
+                             device=dev)
+        for s in range(slots):
+            first = 1 + s * Lr * (nbk + extra)
+            ids = torch.arange(first, first + Lr * (nbk + extra), device=dev,
+                               dtype=torch.int32).reshape(Lr, nbk + extra)
+            tables[:, s, :nbk + extra] = ids
+            for pool, c in zip(pools, (cache, cache, cache32)):
+                T.scatter_blocks(pool, ids[:, :nbk], {
+                    kk: c[kk][:, 0].reshape(Lr, nbk, Bs, -1, cfg.dh)
+                    for kk in ("k", "v")})
+        pos = torch.full((slots,), S, dtype=torch.int32, device=dev)
+        toks = torch.full((slots,), int(lr.argmax()), device=dev)
+        for step in range(steps):
+            dk, _, _ = T.decode_step_paged(params, cfg, pools[0], tables,
+                                           pos, toks, impl="kernel")
+            dp, _, _ = T.decode_step_paged(params, cfg, pools[1], tables,
+                                           pos, toks, impl="plain")
+            dr, _, _ = T.decode_step_paged(p32, c32, pools[2], tables, pos,
+                                           toks, impl="plain")
+            check(f"decode step {step}", dk, dp, dr)
+            pos, toks = pos + 1, dr[:, :cfg.vocab_size].argmax(-1)
+    del params, p32, pools
+
+
+def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
+                  steps: int = 8) -> None:
+    """Where a step's time goes: one engine of the serve phase's shape
+    prefills ``slots`` prompts into its own slots, then runs decode steps
+    with the host clock and then again under ``torch.profiler``; the same
+    for two prefills. Prints each kind's host-clock step time, the device
+    time of the kernels inside it, the device's idle share and the kernels
+    that take the most time. Reports "not measured" rather than
+    failing if the profiler sees no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hardware import get_chip
+    from repro_torch.serving.backends import init_torch_params, make_engine
+    params = init_torch_params(cfg, 0, device=dev)
+    eng = make_engine("torch", 0, cfg, params, slots=slots,
+                      capacity=S + 64 + 8, chip=get_chip("h100"), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=gen).numpy()
+               for _ in range(slots + 4)]
+
+    class Req:
+        slot = engine_id = None
+
+    def report(kind, prof, n, wall_s):
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
+        wall = wall_s * 1e3 / n
+        if not kern:
+            log(f"# profile {kind}: {wall:.3f} ms per step (host clock); "
+                "device time not measured (the profiler saw no kernels)")
+            return
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / n
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total
+                      )[:6]
+        log(f"# profile {kind}: {wall:.3f} ms per step (host clock), device "
+            f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+            f"{len(kern) / n:.0f} device activities per step; top device "
+            "ms per step: "
+            + json.dumps([[name[:60], round(ms, 4)] for name, ms in top])
+            + "; top host ops, self ms per step (under the profiler): "
+            + json.dumps([[a.key[:40], round(a.self_cpu_time_total / 1e3 / n,
+                                             4), a.count // n]
+                          for a in host]))
+
+    with torch.inference_mode():
+        toks = {}
+        for p in prompts[:slots]:
+            tok, payload = eng.prefill(p)
+            toks[eng.insert(Req(), payload)] = tok
+        for _ in range(3):                      # warm-up
+            toks = eng.decode_step(toks)
+        # host clock without the profiler (it adds host time per op), then
+        # the same work again under it for the device side
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            toks = eng.decode_step(toks)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                toks = eng.decode_step(toks)
+        report(f"decode (B={slots}, context ~{S + 3 + steps})", prof,
+               steps, wall)
+        t0 = time.perf_counter()
+        for p in prompts[slots:slots + 2]:
+            eng.prefill(p)
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for p in prompts[slots + 2:]:
+                eng.prefill(p)
+        report(f"prefill (S={S})", prof, 2, wall)
+    del eng, params
+
+
+def main() -> None:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        fail(f"{SRC}/repro_torch not found: run from a checkout of the repo")
+    sys.path.insert(0, SRC)
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch import serve
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1) the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    kind = torch.cuda.get_device_name(0)
+    log(f"# card: {smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {kind}")
+
+    # 2) build
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"# build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name, text in sorted(_build.build_logs.items()):
+        for line in text.splitlines():
+            if "ptxas info" in line and ("Used" in line or "spill" in line):
+                log(f"# ptxas {name}: {line.strip()}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    timer = Timer(torch)
+    rows = {}
+
+    # 3a) flash attention: main path shapes, ragged, q_offset
+    fl_err = 0.0
+    for (B, Sq, Skv, H, Hkv, off) in [(1, 512, 512, 16, 2, 0),
+                                       (1, 509, 509, 16, 2, 0),
+                                       (1, 128, 512, 16, 2, 384),
+                                       (2, 96, 96, 16, 2, 0)]:
+        q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev)
+        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"# flash B={B} Sq={Sq} Skv={Skv} off={off}: max_abs_err "
+            f"{err:.3e}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"flash attention disagrees with its plain version: {err}")
+        fl_err = max(fl_err, err)
+    q, k, v = flash_case(torch, gen, 1, 256, 256, 16, 2, dev)
+    out = fl_ops.flash_attention(q, k, v, causal=False)
+    err = (out.float() - flash_attention_ref(q, k, v, causal=False).float()
+           ).abs().max().item()
+    log(f"# flash non-causal 256: max_abs_err {err:.3e}")
+    if not err <= KERNEL_ATOL:
+        fail(f"non-causal flash attention disagrees: {err}")
+    fl_err = max(fl_err, err)
+
+    def time_flash(S):
+        flops, nbytes = flash_work(1, S, S, 16, 2, 0)
+        cases = [flash_case(torch, gen, 1, S, S, 16, 2, dev)
+                 for _ in range(copies(nbytes))]
+        res = {
+            "ms": timer(fl_ops.flash_attention, cases),
+            "plain_ms": timer(flash_attention_ref, cases, runs=3),
+            "library_ms": timer(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                [tuple(x.transpose(1, 2) for x in c) for c in cases]),
+        }
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        log(f"# flash time S={S} H=16 Hkv=2 ({len(cases)} input sets): "
+            + json.dumps(res))
+        return res
+
+    rows["flash"] = time_flash(512)
+    time_flash(4096)
+
+    # 3b) paged decode: main path shapes (engine block_size 8), garbage
+    lengths = [577, 100, 1, 64, 300, 512, 9, 250]
+    q, pk, pv, tbl, lens = paged_case(torch, gen, lengths, 8, 16, 2, dev)
+    out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
+    torch.cuda.synchronize()
+    ref = dec_ops.decode_attention_paged_plain(q, pk, pv, tbl, lens)
+    dec_err = (out.float() - ref.float()).abs().max().item()
+    log(f"# paged B=8 Bs=8 lengths={lengths}: max_abs_err {dec_err:.3e}")
+    if not math.isfinite(dec_err) or dec_err > KERNEL_ATOL:
+        fail(f"paged decode disagrees with its plain version: {dec_err}")
+    pk2, pv2 = pk.clone(), pv.clone()
+    pk2[0], pv2[0] = 1e4, -1e4
+    for b, n in enumerate(lengths):
+        if n % 8:
+            last = int(tbl[b, (n - 1) // 8])
+            pk2[last, n % 8:] = 77.0
+            pv2[last, n % 8:] = -77.0
+    out2 = dec_ops.decode_attention_paged(q, pk2, pv2, tbl, lens)
+    g_err = (out2.float() - out.float()).abs().max().item()
+    log(f"# paged garbage-block immunity: max change {g_err:.3e}")
+    if g_err > 1e-6:
+        fail(f"poisoned trash/tail blocks leaked into the output: {g_err}")
+
+    def time_paged(lengths, nb=None):
+        first = paged_case(torch, gen, lengths, 8, 16, 2, dev, nb)
+        nbytes = 2 * first[1].numel() * first[1].element_size()  # K, V
+        cases = [first] + [paged_case(torch, gen, lengths, 8, 16, 2, dev, nb)
+                           for _ in range(copies(nbytes) - 1)]
+        tbl = first[3]
+        res = {
+            "ms": timer(dec_ops.decode_attention_paged, cases),
+            "plain_ms": timer(dec_ops.decode_attention_paged_plain, cases,
+                              runs=3),
+            "library_ms": None,     # PyTorch has no paged attention call
+        }
+        res["bound_ms"], res["bound_by"] = bound(*paged_work(
+            lengths, len(lengths), tbl.shape[1], 16, 2))
+        log(f"# paged time B={len(lengths)} max_len={max(lengths)} "
+            f"nb={tbl.shape[1]} ({len(cases)} input sets): "
+            + json.dumps(res))
+        return res
+
+    # the serve phase's decode step: 8 slots midway through 64 new tokens
+    # after a 512-token prompt; the engine's window is capped at its
+    # capacity, ceil((512 + 64 + 8) / 8) = 73 blocks
+    rows["paged"] = time_paged([544] * 8, nb=73)
+    time_paged(lengths)
+    time_paged([4096] * 32)
+
+    # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
+    cfg = get_config("qwen2.5-3b")
+    model_phase(torch, cfg, dev, gen)
+    torch.cuda.empty_cache()
+
+    # 5) serve: the port's entry point, launch counts from this run only
+    torch.cuda.reset_peak_memory_stats()
+    fl_ops.flash_attention.launches = 0
+    dec_ops.decode_attention_paged.launches = 0
+    t0 = time.perf_counter()
+    rec = serve.main(["--requests", "16", "--isl", "512", "--osl", "64",
+                      "--slots", "8", "--prefill-engines", "1",
+                      "--decode-engines", "2", "--rate-matcher", "elastic"])
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {"flash": fl_ops.flash_attention.launches,
+                "paged": dec_ops.decode_attention_paged.launches}
+    log(f"# serve: {serve_s:.1f} s wall, completed {rec['completed']}, "
+        f"prefills {rec['prefills']}, decode_steps {rec['decode_steps']}, "
+        f"launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("# serve sla: " + json.dumps(
+        {k: rec[k] for k in ("p50_ftl_s", "p99_ftl_s", "p50_ttl_s",
+                             "p99_ttl_s", "tokens_per_s", "transfers",
+                             "transferred_MB", "rate_matcher_moves",
+                             "mean_prefill_step_s", "mean_decode_step_s")}))
+    if rec["completed"] != 16:
+        fail(f"serve completed {rec['completed']} of 16")
+    if launches["flash"] < cfg.num_layers * rec["prefills"] or \
+            rec["prefills"] < 16:
+        fail(f"flash kernel: {launches['flash']} launches for "
+             f"{rec['prefills']} prefills")
+    if launches["paged"] < cfg.num_layers * rec["decode_steps"] or \
+            rec["decode_steps"] < 1:
+        fail(f"paged kernel: {launches['paged']} launches for "
+             f"{rec['decode_steps']} decode steps")
+    torch.cuda.empty_cache()
+
+    # 6) profile: where a prefill and a decode step spend their time
+    profile_phase(torch, cfg, dev)
+
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:81",
+         "launches": launches["flash"], "max_abs_err": fl_err,
+         **rows["flash"]},
+        {"name": "paged_decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/decode_attention/csrc/"
+                   "paged_decode.cu",
+         "replaces": "src/repro/kernels/decode_attention/paged_decode.py:74",
+         "launches": launches["paged"], "max_abs_err": dec_err,
+         **rows["paged"]},
+    ]
+    log(f"# total {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

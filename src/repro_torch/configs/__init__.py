@@ -1,0 +1,23 @@
+"""Architecture registry: --arch <id> -> ModelConfig (full + smoke).
+
+The port registers the architectures whose families it serves; this slice
+carries the dense-attention family's ``qwen2.5-3b``."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+_ARCH_MODULES = {
+    "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return importlib.import_module(_ARCH_MODULES[arch]).SMOKE

@@ -1,0 +1,40 @@
+"""Plain PyTorch version of the paged decode kernel: the CPU path of
+``ops.decode_attention_paged`` and the oracle the CUDA kernel is held
+against. It computes the kernel's own outputs — fp32 split partials
+(o, m, l), one split per ``pages_per_split`` table entries — so the CPU
+path runs the same split algebra and the same merge as the card."""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def paged_decode_partials_ref(qg, pool_k, pool_v, tables, lengths, *,
+                              pages_per_split: int):
+    """qg: [B,Hkv,G,dh]; pools: [N,Bs,Hkv,dh]; tables: [B,nb] block ids in
+    sequence order; lengths: [B] valid tokens. Returns o [B,Hkv,S,G,dh]
+    (unnormalised), m and l [B,Hkv,S,G], all fp32, with S splits. Columns
+    at or past a sequence's length get p = 0 before p @ v; a split with no
+    live column gives (0, NEG_INF, 0)."""
+    B, Hkv, G, dh = qg.shape
+    Bs = pool_k.shape[1]
+    nb = tables.shape[1]
+    S = -(-nb // pages_per_split)
+    T = pages_per_split * Bs
+    tbl = F.pad(tables.long(), (0, S * pages_per_split - nb))  # -> trash 0
+    k = pool_k[tbl].reshape(B, S, T, Hkv, dh).float()
+    v = pool_v[tbl].reshape(B, S, T, Hkv, dh).float()
+    s = torch.einsum("bhgd,bsthd->bhsgt", qg.float(), k) / math.sqrt(dh)
+    tok = torch.arange(S * T, device=qg.device).reshape(S, T)
+    valid = tok[None] < lengths.to(qg.device).long()[:, None, None]
+    s = torch.where(valid[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > 0.5 * NEG_INF)[..., None], p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhsgt,bsthd->bhsgd", p, v)
+    return o, m, l

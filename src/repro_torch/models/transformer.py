@@ -1,0 +1,362 @@
+"""Dense-attention decoder: the attention family of
+``repro.models.transformer`` in PyTorch.
+
+Parameters keep the reference's names and layouts (``wq`` [D,Hp,dh],
+``wo`` [Hp,dh,D], ...), with ``params["blocks"]`` a list of per-layer
+dicts: the layer loop is a Python loop where the reference scans a stacked
+``[L, ...]`` axis (``convert.py`` turns one into the other).
+
+Every function that attends takes ``impl``: ``"kernel"`` runs the
+hand-written CUDA kernels of ``repro_torch.kernels`` (on a CPU tensor their
+wrappers run the plain version), ``"plain"`` runs the plain PyTorch
+versions on any device. The serving engine picks ``"kernel"`` on CUDA.
+
+Only the paged KV layout is here: a block pool ``{"k","v":
+[N, Bs, Hkvp, dh]}`` shared by all layers and requests, addressed through
+per-layer block tables ``[L, slots, nb]`` (int32). Block 0 is the trash
+block: padded table columns and inactive decode slots point at it, and no
+live position ever reads it. The dense cache layout, chunked prefill,
+MoE and the recurrent families come with later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention.ops import decode_attention_paged
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+f32 = torch.float32
+IMPLS = ("kernel", "plain")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.block != "attn" or cfg.moe is not None or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense attention family is ported so far "
+            f"(block={cfg.block}, moe={cfg.moe is not None}, "
+            f"frontend={cfg.frontend})")
+
+
+# ---------------------------------------------------------------------------
+# Init
+
+
+def _normal(gen, shape, std, device, dtype):
+    """N(0, std^2) drawn in fp32 on ``device``, then cast (the reference's
+    ``(normal(f32) * std).astype(dt)``)."""
+    x = torch.randn(shape, generator=gen, dtype=f32, device=device)
+    return (x * std).to(dtype)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
+    """Random parameters with the reference's distributions and scales
+    (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
+    ``init_params``), drawn from a ``torch.Generator`` on ``device``. The
+    numbers differ from ``jax.random``'s; tests that need both packages on
+    the same weights convert the JAX ones (``repro_torch.convert``)."""
+    _check_family(cfg)
+    device = torch.device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    D, dh, V, F = cfg.d_model, cfg.dh, cfg.padded_vocab, cfg.d_ff
+    Hp, Hkv = cfg.padded_heads, cfg.padded_kv_heads
+    dt = cfg.tdtype
+    s = 1.0 / math.sqrt(D)
+    deep = s / math.sqrt(cfg.num_layers)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    blocks: List[Dict[str, torch.Tensor]] = []
+    for _ in range(cfg.num_layers):
+        p = {
+            "attn_norm": ones(D),
+            "wq": _normal(gen, (D, Hp, dh), s, device, dt),
+            "wk": _normal(gen, (D, Hkv, dh), s, device, dt),
+            "wv": _normal(gen, (D, Hkv, dh), s, device, dt),
+            "wo": _normal(gen, (Hp, dh, D), deep, device, dt),
+            "ffn_norm": ones(D),
+            "wi_gate": _normal(gen, (D, F), s, device, dt),
+            "wi_up": _normal(gen, (D, F), s, device, dt),
+            "wo_ffn": _normal(gen, (F, D), deep, device, dt),
+        }
+        if cfg.qkv_bias:
+            p["bq"], p["bk"], p["bv"] = zeros(Hp, dh), zeros(Hkv, dh), \
+                zeros(Hkv, dh)
+        if cfg.qk_norm:
+            p["q_norm"], p["k_norm"] = ones(dh), ones(dh)
+        blocks.append(p)
+    params = {
+        "embed": _normal(gen, (V, D), 0.02, device, dt),
+        "blocks": blocks,
+        "final_norm": ones(D),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = _normal(gen, (D, V), s, device, dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    return params["embed"][tokens]
+
+
+def _mask_padded_vocab(logits, cfg: ModelConfig):
+    """Padded vocab rows (sharding padding) never win."""
+    V, Vp = cfg.vocab_size, cfg.padded_vocab
+    if V == Vp:
+        return logits
+    keep = torch.arange(Vp, device=logits.device) < V
+    return torch.where(keep, logits, torch.full_like(logits, L.NEG_INF))
+
+
+def _logits(params, cfg: ModelConfig, x):
+    """fp32 logits of hidden rows x [B, D], as the reference's einsum with
+    ``preferred_element_type=f32``: bf16 operands, fp32 accumulation and
+    fp32 output (bf16-rounded logits would drift greedy argmax ties)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if x.is_cuda and x.dtype != f32:
+        logits = torch.mm(x, head, out_dtype=f32)
+    else:
+        logits = x.float() @ head.float()
+    return _mask_padded_vocab(logits, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Attention block
+
+
+def _head_map(cfg: ModelConfig, device):
+    """q-head -> kv-head index map (padded q heads -> kv head 0, or h//g
+    when kv heads are padded alongside q heads)."""
+    H, Hp = cfg.num_heads, cfg.padded_heads
+    g = H // cfg.num_kv_heads
+    if cfg.padded_kv_heads * g == Hp:
+        m = torch.arange(Hp, device=device) // g
+    else:
+        m = torch.zeros(Hp, dtype=torch.long, device=device)
+        m[:H] = torch.arange(H, device=device) // g
+    return m
+
+
+def _qkv(p, xn, cfg: ModelConfig, positions):
+    B, S, D = xn.shape
+    q = (xn @ p["wq"].reshape(D, -1)).reshape(B, S, cfg.padded_heads, cfg.dh)
+    k = (xn @ p["wk"].reshape(D, -1)).reshape(B, S, cfg.padded_kv_heads,
+                                                cfg.dh)
+    v = (xn @ p["wv"].reshape(D, -1)).reshape(B, S, cfg.padded_kv_heads,
+                                                cfg.dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(p, o, cfg: ModelConfig):
+    B, S = o.shape[:2]
+    if cfg.padded_heads != cfg.num_heads:   # zero padded heads (exact)
+        keep = torch.arange(cfg.padded_heads, device=o.device) < cfg.num_heads
+        o = o * keep[None, None, :, None].to(o.dtype)
+    return o.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+
+
+def _kernel_ok(cfg: ModelConfig) -> None:
+    if cfg.padded_heads != cfg.num_heads:
+        raise ValueError("the attention kernels take no padded heads")
+
+
+def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
+              impl: str = "kernel"):
+    """Full causal self-attention over x [B,S,D]. Returns (attn_out,
+    (k, v)). The kernel takes the un-expanded [B,S,Hkv,dh] K/V and maps
+    query heads to KV heads itself (the reference expands first)."""
+    _check_impl(impl)
+    B, S, _ = x.shape
+    positions = pos_offset + torch.arange(S, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions)
+    if cfg.sliding_window:
+        raise NotImplementedError("sliding-window attention: later slice")
+    if impl == "kernel":
+        _kernel_ok(cfg)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True)
+    else:
+        hmap = _head_map(cfg, x.device)
+        o = flash_attention_ref(q, L.expand_kv(k, hmap),
+                                L.expand_kv(v, hmap), causal=True)
+    return _attn_out(p, o.to(x.dtype), cfg), (k, v)
+
+
+def _decode_attend(q, kd, vd, valid, cfg: ModelConfig):
+    """Single-token attention core of the plain paged path: q [B,1,Hp,dh]
+    against kd/vd [B,C,Hkvp,dh] with validity mask [B,C]."""
+    B = q.shape[0]
+    scale = 1.0 / math.sqrt(cfg.dh)
+    Hkvp = cfg.padded_kv_heads
+    if cfg.grouped_decode and cfg.can_group_decode:
+        # GQA without materializing the expanded KV
+        qg = q[:, 0].reshape(B, Hkvp, -1, cfg.dh)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), kd.float()) * scale
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full_like(s, L.NEG_INF))
+        pr = torch.softmax(s, dim=-1)
+        o = torch.einsum("bhgk,bkhd->bhgd", pr.to(vd.dtype).float(),
+                         vd.float())
+        return o.reshape(B, 1, cfg.padded_heads, cfg.dh)
+    hmap = _head_map(cfg, q.device)
+    kr, vr = L.expand_kv(kd, hmap), L.expand_kv(vd, hmap)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, L.NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pr.to(vr.dtype).float(),
+                        vr.float())
+
+
+# ---------------------------------------------------------------------------
+# FFN and layer body
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"])
+
+
+def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
+    """One attention-family layer over the prompt; returns (x, cache
+    entry {"k","v": [B,S,Hkvp,dh]})."""
+    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
+    x = _ffn(p, x + attn_out, cfg)
+    return x, {"k": k, "v": v}
+
+
+def prefill_full(params, cfg: ModelConfig, inputs, *,
+                 capacity: Optional[int] = None, impl: str = "kernel"):
+    """Single-shot prefill. inputs: {"tokens": [B,S] int}. Returns (logits
+    [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]})."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, inputs["tokens"])
+    B, S, _ = x.shape
+    capacity = capacity or S
+    ks, vs = [], []
+    for p in params["blocks"]:
+        x, entry = _layer_prefill(p, x, cfg, impl)
+        ks.append(entry["k"])
+        vs.append(entry["v"])
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x[:, -1])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    if capacity > S:        # grow the cache to the requested capacity
+        for key in ("k", "v"):
+            c = cache[key]
+            pad = c.new_zeros(c.shape[:2] + (capacity - S,) + c.shape[3:])
+            cache[key] = torch.cat([c, pad], dim=2)
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache
+
+
+def supports_paged(cfg: ModelConfig) -> bool:
+    """Paged serving covers the dense-attention family without quantized
+    KV or a sliding window."""
+    return (cfg.block == "attn" and not cfg.kv_quant
+            and not cfg.sliding_window)
+
+
+def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
+                    device):
+    """Zero-filled block pool {"k","v": [N, Bs, Hkvp, dh]}."""
+    shape = (num_blocks, block_size, cfg.padded_kv_heads, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+
+
+def gather_blocks(pool, ids):
+    """ids [L, nb] -> free-floating {"k","v": [L, nb, Bs, Hkvp, dh]}: the
+    paged KV-handoff payload (only the request's own blocks travel)."""
+    ids = ids.long()
+    return {"k": pool["k"][ids], "v": pool["v"][ids]}
+
+
+def scatter_blocks(pool, ids, blocks):
+    """Write handoff block tensors into ``pool`` at ids [L, nb] (distinct
+    across layers). In place, where the reference's jit donates the pool."""
+    flat = ids.reshape(-1).long()
+    for key in ("k", "v"):
+        dst = pool[key]
+        src = blocks[key].reshape((-1,) + tuple(dst.shape[1:]))
+        dst.index_copy_(0, flat, src.to(device=dst.device, dtype=dst.dtype))
+    return pool
+
+
+def attn_decode_paged(p, x1, cfg: ModelConfig, pool_k, pool_v, tbl, pos,
+                      impl: str = "kernel"):
+    """One decode token against the paged layout. x1: [B,1,D] (normed);
+    pool_k/v: [N,Bs,Hkvp,dh]; tbl: [B,nb] int32; pos: [B] int32. Writes
+    this token's K/V into the slot's current block (in place: the
+    reference donates the pool to jit), then attends over the window
+    W = nb*Bs. Inactive slots point at the trash block with pos=0: their
+    writes land there, duplicates and all, and nothing live reads it."""
+    _check_impl(impl)
+    B = x1.shape[0]
+    Bs = pool_k.shape[1]
+    q, k, v = _qkv(p, x1, cfg, pos[:, None])
+    pos_l = pos.long()
+    wblk = tbl[torch.arange(B, device=tbl.device), pos_l // Bs].long()
+    off = pos_l % Bs
+    pool_k.index_put_((wblk, off), k[:, 0].to(pool_k.dtype))
+    pool_v.index_put_((wblk, off), v[:, 0].to(pool_v.dtype))
+    if impl == "kernel":
+        _kernel_ok(cfg)
+        o = decode_attention_paged(q[:, 0].contiguous(), pool_k, pool_v, tbl,
+                                   pos + 1)[:, None]
+    else:
+        W = tbl.shape[1] * Bs
+        kd = pool_k[tbl.long()].reshape(B, W, cfg.padded_kv_heads, cfg.dh)
+        vd = pool_v[tbl.long()].reshape(B, W, cfg.padded_kv_heads, cfg.dh)
+        valid = torch.arange(W, device=pos.device)[None, :] <= pos_l[:, None]
+        o = _decode_attend(q, kd, vd, valid, cfg)
+    return _attn_out(p, o.to(x1.dtype), cfg), (pool_k, pool_v)
+
+
+def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
+                      impl: str = "kernel"):
+    """Batched decode step on the paged layout. tables: [L,B,nb] int32;
+    pos, tokens: [B]. Returns (logits [B,Vp] fp32, pool, pos+1); the pool
+    is updated in place."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, tokens[:, None])
+    pk, pv = pool["k"], pool["v"]
+    for p, tbl in zip(params["blocks"], tables):
+        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv, tbl, pos,
+                                        impl=impl)
+        x = _ffn(p, x + attn_out, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, x[:, 0]), pool, pos + 1

@@ -1,0 +1,24 @@
+"""Workload API for ``Cluster.serve()``: the port's copy of the open-loop
+half of ``repro.workloads`` (arrival processes x shape samplers). Sessions
+and trace replay come with a later slice."""
+from repro_torch.workloads.arrivals import (ArrivalProcess, Burst, Diurnal,
+                                            Merged, PiecewiseRate, Poisson)
+from repro_torch.workloads.base import (BATCH, INTERACTIVE, STANDARD,
+                                        Recorder, SLATier, StaticWorkload,
+                                        Superpose, Workload, WorkloadSummary,
+                                        materialize)
+from repro_torch.workloads.generators import OpenLoopWorkload
+from repro_torch.workloads.shapes import (PATTERN_SHAPES, FixedShape,
+                                          LognormalShape, MixtureShape,
+                                          ShapeSampler)
+
+__all__ = [
+    "Workload", "WorkloadSummary", "StaticWorkload", "Superpose",
+    "Recorder", "materialize",
+    "SLATier", "INTERACTIVE", "STANDARD", "BATCH",
+    "ArrivalProcess", "Poisson", "Burst", "PiecewiseRate", "Diurnal",
+    "Merged",
+    "ShapeSampler", "FixedShape", "LognormalShape", "MixtureShape",
+    "PATTERN_SHAPES",
+    "OpenLoopWorkload",
+]

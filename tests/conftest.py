@@ -17,3 +17,8 @@ import pytest
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skipped where there is none")

@@ -1,0 +1,203 @@
+"""Port kernels vs the JAX package on the CPU: the PyTorch wrappers (which
+run their plain versions on CPU tensors) against the Pallas kernels in
+interpret mode and against the JAX package's own oracles, on the same
+numpy inputs.
+
+Tolerances: every comparison is in float32, where the two sides differ
+only in summation order (online softmax over tiles vs one softmax over the
+row), so 2e-5 — the bound ``tests/test_kernels.py`` uses for float32 — is
+ample; the garbage-block case is exact up to 1e-6, as there.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention import ops as jax_dec_ops
+from repro.kernels.decode_attention.paged_decode import \
+    paged_decode_attention_kernel
+from repro.kernels.decode_attention.ref import decode_attention_paged_ref
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.decode_attention.ref import paged_decode_partials_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+TOL = 2e-5      # float32, summation order only
+NEG_INF = -1e30
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,causal,off,block", [
+    (2, 128, 128, 4, 2, 64, True, 0, 64),        # GQA, causal
+    (1, 128, 128, 16, 2, 128, True, 0, 64),      # qwen2.5-3b head geometry
+    (2, 64, 192, 2, 1, 64, True, 128, 64),       # q_offset > 0, Sq != Skv
+    (1, 128, 128, 8, 2, 64, False, 0, 64),       # full (non-causal)
+    (1, 48, 48, 4, 2, 128, True, 0, 16),         # ragged: 48 % 64 != 0
+    (1, 40, 104, 16, 2, 128, True, 64, 8),       # ragged chunk at an offset
+])
+def test_flash_attention_matches_jax(B, Sq, Skv, H, Hkv, dh, causal, off,
+                                     block):
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, Sq, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, Hkv, dh)).astype(np.float32)
+    n0 = flash_attention.launches
+    out = flash_attention(_t(q), _t(k), _t(v), causal=causal, q_offset=off)
+    assert flash_attention.launches == n0       # CPU: plain version only
+    assert out.shape == (B, Sq, H, dh) and out.dtype == torch.float32
+    # the TPU kernel needs Sq, Skv to be multiples of its tiles: the JAX
+    # side takes tiles that divide the ragged lengths
+    pallas = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal, q_offset=off, block_q=block,
+                       block_kv=block, interpret=True)
+    ref = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, q_offset=off)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+def test_flash_attention_ref_keeps_dtype_and_masks_empty_rows():
+    """bf16 in -> bf16 out; a row that sees no key gives 0, not NaN, as
+    the kernels' finite NEG_INF and m > 0.5*NEG_INF guard do."""
+    rng = np.random.default_rng(1)
+    q = _t(rng.standard_normal((1, 4, 2, 16)).astype(np.float32))
+    k = _t(rng.standard_normal((1, 4, 1, 16)).astype(np.float32))
+    out = flash_attention_ref(q.bfloat16(), k.bfloat16(), k.bfloat16())
+    assert out.dtype == torch.bfloat16
+    # row 0 sits at position -1: every key lies in its causal future
+    s = flash_attention_ref(q, k, k, causal=True, q_offset=-1)
+    assert torch.isfinite(s).all() and float(s[0, 0].abs().max()) == 0.0
+
+
+def _paged_case(rng, B, N, Bs, Hkv, dh, lengths):
+    """Pool + sequential per-sequence tables; pad columns -> trash block 0
+    (the layout of ``tests/test_kernels.py``)."""
+    pool_k = rng.standard_normal((N, Bs, Hkv, dh)).astype(np.float32)
+    pool_v = rng.standard_normal((N, Bs, Hkv, dh)).astype(np.float32)
+    nb = max(-(-int(n) // Bs) for n in lengths)
+    tables = np.zeros((B, nb), np.int32)
+    ids = iter(range(1, N))
+    for b, n in enumerate(lengths):
+        for j in range(-(-int(n) // Bs)):
+            tables[b, j] = next(ids)
+    return pool_k, pool_v, tables
+
+
+PAGED_CASES = [                                  # tests/test_kernels.py:92
+    (2, 8, 2, 64, 16, 32, (37, 16)),
+    (3, 4, 4, 128, 32, 16, (64, 1, 90)),
+    (1, 16, 1, 64, 8, 64, (100,)),
+    (2, 8, 8, 64, 64, 8, (64, 128)),
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,dh,Bs,N,lengths", PAGED_CASES + [
+    (4, 16, 2, 128, 8, 64, (129, 1, 64, 77)),    # qwen2.5-3b geometry,
+])                                               # engine block size 8
+def test_decode_attention_paged_matches_jax(B, H, Hkv, dh, Bs, N, lengths):
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    pool_k, pool_v, tables = _paged_case(rng, B, N, Bs, Hkv, dh, lengths)
+    lens = np.asarray(lengths, np.int32)
+    n0 = dec_ops.decode_attention_paged.launches
+    out = dec_ops.decode_attention_paged(_t(q), _t(pool_k), _t(pool_v),
+                                         _t(tables), _t(lens))
+    assert dec_ops.decode_attention_paged.launches == n0
+    pallas = jax_dec_ops.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(pool_k), jnp.asarray(pool_v),
+        jnp.asarray(tables), jnp.asarray(lens), interpret=True)
+    ref = decode_attention_paged_ref(q, pool_k, pool_v, tables, lens)
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(out.numpy(), ref, atol=TOL, rtol=TOL)
+
+
+def test_decode_attention_paged_garbage_block_immunity():
+    """Trash-block contents and positions past a length must not leak
+    (``tests/test_kernels.py:113``): poisoning them changes nothing."""
+    rng = np.random.default_rng(13)
+    B, H, Hkv, dh, Bs, N = 2, 4, 2, 64, 16, 16
+    lengths = np.array([20, 33], np.int32)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    pool_k, pool_v, tables = _paged_case(rng, B, N, Bs, Hkv, dh, lengths)
+    out1 = dec_ops.decode_attention_paged(_t(q), _t(pool_k), _t(pool_v),
+                                          _t(tables), _t(lengths))
+    pool_k2, pool_v2 = pool_k.copy(), pool_v.copy()
+    pool_k2[0] = 1e4
+    pool_v2[0] = -1e4
+    for b, n in enumerate(lengths):
+        last = tables[b, (int(n) - 1) // Bs]
+        pool_k2[last, int(n) % Bs or Bs:] = 77.0
+        pool_v2[last, int(n) % Bs or Bs:] = -77.0
+    out2 = dec_ops.decode_attention_paged(_t(q), _t(pool_k2), _t(pool_v2),
+                                          _t(tables), _t(lengths))
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("lengths", [(37, 16), (1, 48, 0)])
+def test_paged_partials_match_tpu_kernel_partials(lengths):
+    """With one table entry per split (the TPU kernel's split), the plain
+    partials are the TPU kernel's own (o, m, l), dead splits included:
+    (0, NEG_INF, 0), which the merge turns into exact zeros."""
+    rng = np.random.default_rng(5)
+    B, Hkv, G, dh, Bs, N = len(lengths), 2, 4, 64, 16, 16
+    qg = rng.standard_normal((B, Hkv, G, dh)).astype(np.float32)
+    pool_k, pool_v, tables = _paged_case(rng, B, N, Bs, Hkv, dh,
+                                         [max(n, 1) for n in lengths])
+    lens = np.asarray(lengths, np.int32)
+    o, m, l = paged_decode_partials_ref(_t(qg), _t(pool_k), _t(pool_v),
+                                        _t(tables), _t(lens),
+                                        pages_per_split=1)
+    jo, jm, jl = paged_decode_attention_kernel(
+        jnp.asarray(qg), jnp.asarray(pool_k), jnp.asarray(pool_v),
+        jnp.asarray(tables), jnp.asarray(lens), scale=1.0 / np.sqrt(dh),
+        interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    assert float(m.min()) == float(np.float32(NEG_INF))   # a dead split
+    merged = dec_ops._merge_splits(o, m, l)
+    jmerged = jax_dec_ops._merge_splits(jo, jm, jl)
+    np.testing.assert_allclose(merged.numpy(), np.asarray(jmerged),
+                               atol=TOL, rtol=TOL)
+    assert torch.isfinite(merged).all()
+
+
+def test_merge_splits_matches_jax_on_random_partials():
+    rng = np.random.default_rng(9)
+    o = rng.standard_normal((2, 2, 5, 4, 8)).astype(np.float32)
+    m = rng.standard_normal((2, 2, 5, 4)).astype(np.float32)
+    l = rng.uniform(0.5, 2.0, (2, 2, 5, 4)).astype(np.float32)
+    m[:, :, 3] = NEG_INF                       # dead splits
+    l[:, :, 3] = 0.0
+    o[:, :, 3] = 0.0
+    got = dec_ops._merge_splits(_t(o), _t(m), _t(l))
+    want = jax_dec_ops._merge_splits(jnp.asarray(o), jnp.asarray(m),
+                                     jnp.asarray(l))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_pages_per_split_covers_split_tokens():
+    assert dec_ops.pages_per_split(8) == 16
+    assert dec_ops.pages_per_split(128) == 1
+    with pytest.raises(ValueError):
+        dec_ops.pages_per_split(256)
+
+
+def test_wrappers_check_shapes():
+    q = torch.zeros((1, 4, 6, 16))
+    with pytest.raises(ValueError):             # 6 q heads, 4 kv heads
+        flash_attention(q, torch.zeros((1, 4, 4, 16)),
+                        torch.zeros((1, 4, 4, 16)))
+    with pytest.raises(ValueError):             # k and v differ
+        flash_attention(q, torch.zeros((1, 4, 2, 16)),
+                        torch.zeros((1, 5, 2, 16)))

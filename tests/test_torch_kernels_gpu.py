@@ -1,0 +1,121 @@
+"""Card-only checks of the port's CUDA kernels against their plain PyTorch
+versions, on the same bf16 inputs. Marked ``gpu``: each test asks the
+``cuda`` fixture for the card and skips where there is none. The file
+imports torch only (the parity files beside it hold the port against the
+JAX package on the CPU), so on a machine with a card and no jax it runs as
+
+  PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention_paged, decode_attention_paged_plain)
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+pytestmark = pytest.mark.gpu
+
+# bf16 outputs (2^-8 relative) and p rounded to bf16 inside the kernels:
+# the bound the JAX package's bf16 kernel tests use
+ATOL = 2e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _bf16(rng, shape, dev):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(dev).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,causal,off", [
+    (2, 128, 128, 4, 2, True, 0),
+    (1, 256, 256, 4, 4, True, 0),
+    (2, 64, 192, 2, 1, True, 128),      # chunked-prefill offset
+    (1, 128, 128, 8, 2, False, 0),
+    (1, 509, 509, 16, 2, True, 0),      # ragged: no multiple of the tile
+    (1, 1, 1, 16, 2, True, 0),
+    (1, 70, 300, 16, 2, True, 230),     # ragged offset chunk
+])
+def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, causal, off):
+    rng = np.random.default_rng(3)
+    q = _bf16(rng, (B, Sq, H, 128), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def _paged_case(rng, B, N, Bs, Hkv, lengths, dev):
+    """Pool + sequential per-sequence tables; pad columns -> trash block 0
+    (the layout of tests/test_kernels.py)."""
+    pool_k = _bf16(rng, (N, Bs, Hkv, 128), dev)
+    pool_v = _bf16(rng, (N, Bs, Hkv, 128), dev)
+    nb = max(-(-int(n) // Bs) for n in lengths)
+    tables = np.zeros((B, nb), np.int32)
+    ids = iter(range(1, N))
+    for b, n in enumerate(lengths):
+        for j in range(-(-int(n) // Bs)):
+            tables[b, j] = next(ids)
+    return (pool_k, pool_v, torch.from_numpy(tables).to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("B,H,Hkv,Bs,N,lengths", [
+    (2, 8, 2, 16, 32, (37, 16)),
+    (3, 4, 4, 32, 16, (64, 1, 90)),
+    (1, 16, 1, 8, 64, (100,)),
+    (2, 8, 8, 64, 8, (64, 128)),
+    (8, 16, 2, 8, 400, (577, 100, 1, 64, 300, 512, 9, 250)),
+])
+def test_paged_kernel_matches_plain(cuda, B, H, Hkv, Bs, N, lengths):
+    rng = np.random.default_rng(11)
+    q = _bf16(rng, (B, H, 128), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(rng, B, N, Bs, Hkv, lengths,
+                                               cuda)
+    n0 = decode_attention_paged.launches
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    assert decode_attention_paged.launches == n0 + 1
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_paged_kernel_garbage_block_immunity(cuda):
+    """Trash-block contents and positions past a length must not leak:
+    the kernel never reads them, so the output is bit-identical."""
+    rng = np.random.default_rng(13)
+    lengths = (20, 33)
+    q = _bf16(rng, (2, 4, 128), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(rng, 2, 16, 16, 2, lengths,
+                                               cuda)
+    out1 = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    pool_k2, pool_v2 = pool_k.clone(), pool_v.clone()
+    pool_k2[0], pool_v2[0] = 1e4, -1e4
+    for b, n in enumerate(lengths):
+        last = int(tables[b, (n - 1) // 16])
+        pool_k2[last, n % 16 or 16:] = 77.0
+        pool_v2[last, n % 16 or 16:] = -77.0
+    out2 = decode_attention_paged(q, pool_k2, pool_v2, tables, lens)
+    assert torch.equal(out1, out2)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda):
+    """On CUDA tensors the wrappers launch or raise: no plain fallback."""
+    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])       # dh 64
+    q32 = torch.zeros((1, 8, 4, 128), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q32, q32[:, :, :2], q32[:, :, :2])  # fp32

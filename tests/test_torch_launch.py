@@ -1,0 +1,102 @@
+"""The port's launcher and its import hygiene.
+
+``repro_torch`` imports torch and never jax, and nothing of the JAX package
+``repro`` (its own copies of the framework-free modules stand in); its
+launcher serves end to end on the CPU when asked to.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax  # noqa: F401  (both frameworks in one test process, as elsewhere)
+import pytest
+import torch  # noqa: F401
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    return env
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+
+
+def _forbidden(name: str) -> bool:
+    """On a dotted boundary: ``repro`` and ``repro.x`` are forbidden,
+    ``repro_torch`` is not."""
+    return name.split(".")[0] in FORBIDDEN
+
+
+def test_forbidden_matches_on_dotted_boundary():
+    assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("repro") and _forbidden("repro.serving.cluster")
+    assert not _forbidden("repro_torch.serving.cluster")
+    assert not _forbidden("jaxtyping_free") and not _forbidden("reprox")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted(PORT.rglob("*.py"))
+    assert len(files) > 20
+    bad = [f"{p.relative_to(ROOT)}:{line}: {name}" for p in files
+           for line, name in _imports(p) if _forbidden(name)]
+    assert not bad, bad
+    smoke = [name for _, name in _imports(ROOT / "chip_smoke.py")]
+    assert not [n for n in smoke if _forbidden(n)], smoke
+
+
+def test_launcher_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch.launch.serve, repro_torch.convert; "
+            "loaded = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "assert not loaded, loaded; print('clean')")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_launcher_serves_smoke_config_on_cpu():
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--requests", "4", "--isl", "32", "--osl", "6"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "completed" in out.stdout
+    rec = json.loads(out.stdout)
+    assert rec["completed"] == 4 and rec["device"] == "cpu"
+    assert rec["arch"] == "qwen2.5-3b-smoke" and rec["backend"] == "torch"
+    assert rec["prefills"] == 4 and rec["transfers"] == 4
+    assert rec["hardware"]["decode"] == {"gpu-h100": 2}
+
+
+def test_launcher_main_in_process(capsys):
+    from repro_torch.launch import serve
+    rec = serve.main(["--smoke", "--device", "cpu", "--requests", "3",
+                      "--isl", "16", "--osl", "4", "--workload", "burst",
+                      "--rate-matcher", "static", "--router",
+                      "least-loaded", "--scheduler", "priority"])
+    assert rec["completed"] == 3 and rec["rate_matcher"] == "static"
+    assert json.loads(capsys.readouterr().out)["completed"] == 3
+
+
+def test_launcher_refuses_zero_decode_engines():
+    from repro_torch.launch import serve
+    with pytest.raises(ValueError, match="decode"):
+        serve.main(["--smoke", "--device", "cpu", "--requests", "2",
+                    "--decode-engines", "0", "--rate-matcher", "none"])
