@@ -10,11 +10,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      process per source, all at once), printing ptxas register/smem lines;
   3. kernels: each kernel's wrapper on the card at the main path's shapes,
      held against its plain PyTorch version on the same inputs (bf16 in,
-     tolerance stated below), the paged kernel also against poisoned
-     trash/tail blocks; then timed with CUDA events over runs that cycle
-     through more inputs than the L2 holds, beside the plain version, the
-     library call where PyTorch has one, and the bound computed from the
-     shapes — at the main path's shapes and at one larger shape;
+     tolerance stated below) — flash attention also at chunked-prefill
+     shapes (16 or 64 query rows at an offset), the paged kernel also
+     against poisoned trash/tail blocks, the dense decode kernel against
+     poisoned rows at and past each length; then timed with CUDA events
+     over runs that cycle through more inputs than the L2 holds, beside
+     the plain version, the library call where PyTorch has one, and the
+     bound computed from the shapes — at the main path's shapes and at one
+     larger shape;
   4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
      seed 0), prefill and paged decode steps with the kernels, with the
      plain path, and with the plain path in float32 on the same weights,
@@ -25,9 +28,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      elastic rate matcher — with every kernel's launch count set to 0 just
      before and read just after; fails unless all 16 complete and each
      kernel ran once per layer per prefill / decode step;
-  6. profile: one engine of the serve's shape, a prefill and a decode
+  6. co-located serve: ``--mode coloc``, 8 requests of 512/64 on one mixed
+     pool of 2 engines, chunked prefill (64-token chunks, each chunk's
+     attention through the flash kernel at its offset) with a decode round
+     piggybacked after every chunk; fails unless all complete with no KV
+     transfer, flash ran at least once per layer per chunk and the paged
+     kernel once per layer per decode step;
+  7. prefix-affinity serve: ``--mode coloc --scheduler prefix-affinity
+     --workload sessions``, 2 conversations of 2 turns; fails unless every
+     turn completes and the engines' prefix caches report hits;
+  8. dense serve: a disaggregated cluster of dense-layout engines
+     (``paged=False``), 4 requests of 512/32; fails unless the dense
+     decode kernel ran once per layer per decode step and the paged kernel
+     not at all; prints how long a prefix of the first request's stream
+     agrees with the paged layout's (bf16 argmax ties may differ);
+  9. profile: one engine of the serve's shape, a prefill and a decode
      step under ``torch.profiler`` (host-clock step time, device time,
      idle share, the kernels that take the most time).
+
+Every path (5-8) runs with every kernel's launch count set to 0 just
+before it and read just after; each phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -151,6 +171,26 @@ def paged_work(lengths, B, nb, H, Hkv):
     nbytes = (2.0 * B * H * dh * 2            # q in, out
               + 2.0 * 2 * live * Hkv * dh     # live K and V rows
               + 4.0 * B * nb + 4.0 * B)       # tables, lengths
+    return flops, nbytes
+
+
+def dense_case(torch, gen, lengths, Smax, H, Hkv, dev):
+    """q, dense caches [B,Smax,Hkv,128] and int32 lengths."""
+    dh = 128
+    B = len(lengths)
+    mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(  # noqa
+        torch.bfloat16)
+    return (mk(B, H, dh), mk(B, Smax, Hkv, dh), mk(B, Smax, Hkv, dh),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def dense_work(lengths, B, H, Hkv):
+    """What the dense decode function must do for these lengths: the live
+    K/V rows once (not the Smax-wide cache), q in, out, lengths."""
+    dh = 128
+    live = float(sum(lengths))
+    flops = 4.0 * live * H * dh
+    nbytes = 2.0 * B * H * dh * 2 + 2.0 * 2 * live * Hkv * dh + 4.0 * B
     return flops, nbytes
 
 
@@ -305,6 +345,40 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     del eng, params
 
 
+def dense_serve(torch, cfg, dev, paged: bool, streams) -> dict:
+    """A disaggregated cluster (1 prefill + 1 decode engine, 4 slots) of the
+    given layout serving 4 requests of 512/32 at full width, random
+    weights from seed 0; records request 0's token stream in
+    ``streams[paged]`` and returns the SLA metrics with the step counts."""
+    from repro_torch.core.hardware import get_chip
+    from repro_torch.serving.backends import init_torch_params, make_engine
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.workloads import (Burst, FixedShape, OpenLoopWorkload,
+                                       StaticWorkload, materialize)
+    params = init_torch_params(cfg, 0, device=dev)
+    engines = [make_engine("torch", i, cfg, params, slots=4,
+                           capacity=512 + 32 + 8, paged=paged,
+                           chip=get_chip("h100"), device=dev)
+               for i in (0, 100)]
+    reqs = materialize(OpenLoopWorkload(
+        Burst(4), FixedShape(512, 32), vocab=cfg.vocab_size, seed=0,
+        max_requests=4, horizon_s=3600.0))
+    cluster = Cluster({"prefill": engines[:1], "decode": engines[1:]})
+    rec = cluster.serve(StaticWorkload(reqs))
+    streams[paged] = list(reqs[0].output)
+    prefills = sum(e.prefills for e in engines)
+    steps = sum(e.decode_steps for e in engines)
+    rec.update(mode="dense" if not paged else "paged", prefills=prefills,
+               decode_steps=steps, transfers=cluster.stats.transfers,
+               transferred_MB=cluster.stats.transferred_bytes / 2**20,
+               mean_prefill_step_s=sum(e.prefill_s for e in engines)
+               / max(prefills, 1),
+               mean_decode_step_s=sum(e.decode_s for e in engines)
+               / max(steps, 1))
+    del engines, params
+    return rec
+
+
 def main() -> None:
     try:
         import torch
@@ -320,6 +394,7 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.launch import serve
@@ -353,6 +428,7 @@ def main() -> None:
     rows = {}
 
     # 3a) flash attention: main path shapes, ragged, q_offset
+    t0 = time.perf_counter()
     fl_err = 0.0
     for (B, Sq, Skv, H, Hkv, off) in [(1, 512, 512, 16, 2, 0),
                                        (1, 509, 509, 16, 2, 0),
@@ -445,62 +521,225 @@ def main() -> None:
     rows["paged"] = time_paged([544] * 8, nb=73)
     time_paged(lengths)
     time_paged([4096] * 32)
+    log(f"# phase kernels (flash, paged): {time.perf_counter() - t0:.1f} s")
+
+    # 3c) flash attention at chunked-prefill shapes: Sq < 64 and offsets
+    #     that are no multiple of the 64-row tile, Skv = q_offset + Sq
+    t0 = time.perf_counter()
+    chunk_rows = []
+    for Sq, off in [(16, 48), (16, 448), (64, 48), (64, 448)]:
+        Skv = off + Sq
+        q, k, v = flash_case(torch, gen, 1, Sq, Skv, 16, 2, dev)
+        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"flash at chunk Sq={Sq} q_offset={off} disagrees: {err}")
+        fl_err = max(fl_err, err)
+        flops, nbytes = flash_work(1, Sq, Skv, 16, 2, off)
+        cases = [flash_case(torch, gen, 1, Sq, Skv, 16, 2, dev)
+                 for _ in range(copies(nbytes))]
+        mask = (torch.arange(Skv, device=dev)[None, :]
+                <= off + torch.arange(Sq, device=dev)[:, None])
+        res = {"Sq": Sq, "q_offset": off, "Skv": Skv, "max_abs_err": err,
+               "ms": timer(lambda q, k, v: fl_ops.flash_attention(
+                   q, k, v, causal=True, q_offset=off), cases),
+               "plain_ms": timer(lambda q, k, v: flash_attention_ref(
+                   q, k, v, causal=True, q_offset=off), cases, runs=3),
+               "library_ms": timer(
+                   lambda q, k, v: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask, enable_gqa=True),
+                   [tuple(x.transpose(1, 2) for x in c) for c in cases])}
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+        log("# flash chunk time: " + json.dumps(res))
+        chunk_rows.append(res)
+    rows["flash"]["chunk_shapes"] = chunk_rows
+
+    # 3d) dense decode (kernel 3): the dense engine's capacity 584 (no
+    #     multiple of the 128-row split), mixed lengths including 1 and
+    #     Smax, then rows at and past each length poisoned with +-1e4
+    Smax = 584
+    lengths = [1, 584, 100, 128, 129, 300, 512, 9]
+    q, kc, vc, lens = dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+    out = dec_ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, kc, vc, lens)
+    dense_err = (out.float() - ref.float()).abs().max().item()
+    log(f"# dense B=8 Smax={Smax} lengths={lengths}: max_abs_err "
+        f"{dense_err:.3e}")
+    if not math.isfinite(dense_err) or dense_err > KERNEL_ATOL:
+        fail(f"dense decode disagrees with its plain version: {dense_err}")
+    kc2, vc2 = kc.clone(), vc.clone()
+    for b, n in enumerate(lengths):
+        kc2[b, n:], vc2[b, n:] = 1e4, -1e4
+    out2 = dec_ops.decode_attention(q, kc2, vc2, lens)
+    torch.cuda.synchronize()
+    if not torch.equal(out, out2):
+        fail("dense decode: rows at or past a length leaked into the "
+             f"output ({(out2.float() - out.float()).abs().max().item()})")
+    log("# dense length-mask exactness: output unchanged with rows at and "
+        "past each length poisoned to +-1e4")
+
+    def time_dense(lengths, Smax):
+        B = len(lengths)
+        first = dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+        nbytes = 2 * first[1].numel() * first[1].element_size()
+        cases = [first] + [dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+                           for _ in range(copies(nbytes) - 1)]
+        cols = torch.arange(Smax, device=dev)
+
+        def sdpa(q, k, v, lens):
+            keep = (cols[None, :] < lens[:, None].long())[:, None, None, :]
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=keep, enable_gqa=True)
+
+        res = {"ms": timer(dec_ops.decode_attention, cases),
+               "plain_ms": timer(decode_attention_ref, cases, runs=3),
+               "library_ms": timer(sdpa, cases)}
+        res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, 16,
+                                                             2))
+        log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} "
+            f"({len(cases)} input sets): " + json.dumps(res))
+        return res
+
+    # the dense serve's decode step: 8 slots midway through 64 new tokens
+    # after a 512-token prompt, in the launcher's capacity of 584
+    rows["dense"] = time_dense([544] * 8, 584)
+    time_dense(lengths, 584)
+    time_dense([4096] * 32, 4096)
+    log(f"# phase kernels (flash chunks, dense): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
     model_phase(torch, cfg, dev, gen)
     torch.cuda.empty_cache()
 
-    # 5) serve: the port's entry point, launch counts from this run only
-    torch.cuda.reset_peak_memory_stats()
-    fl_ops.flash_attention.launches = 0
-    dec_ops.decode_attention_paged.launches = 0
-    t0 = time.perf_counter()
-    rec = serve.main(["--requests", "16", "--isl", "512", "--osl", "64",
-                      "--slots", "8", "--prefill-engines", "1",
-                      "--decode-engines", "2", "--rate-matcher", "elastic"])
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = {"flash": fl_ops.flash_attention.launches,
-                "paged": dec_ops.decode_attention_paged.launches}
-    log(f"# serve: {serve_s:.1f} s wall, completed {rec['completed']}, "
-        f"prefills {rec['prefills']}, decode_steps {rec['decode_steps']}, "
-        f"launches {launches}, max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("# serve sla: " + json.dumps(
-        {k: rec[k] for k in ("p50_ftl_s", "p99_ftl_s", "p50_ttl_s",
-                             "p99_ttl_s", "tokens_per_s", "transfers",
-                             "transferred_MB", "rate_matcher_moves",
-                             "mean_prefill_step_s", "mean_decode_step_s")}))
+    counters = {"flash": fl_ops.flash_attention,
+                "paged": dec_ops.decode_attention_paged,
+                "dense": dec_ops.decode_attention}
+    by_path = {}
+
+    def drive(path, fn):
+        """Run one path with every launch count set to 0 just before it and
+        read just after; returns (its result, its launch counts)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        n = {name: c.launches for name, c in counters.items()}
+        by_path[path] = n
+        log(f"# phase {path}: {time.perf_counter() - t0:.1f} s wall, "
+            f"launches {n}, max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return out, n
+
+    def sla(rec):
+        log(f"# {rec['mode']} sla: " + json.dumps(
+            {k: rec.get(k) for k in (
+                "completed", "prefills", "decode_steps", "p50_ftl_s",
+                "p99_ftl_s", "p50_ttl_s", "p99_ttl_s", "tokens_per_s",
+                "transfers", "transferred_MB", "rate_matcher_moves",
+                "prefix_hits", "mean_prefill_step_s",
+                "mean_decode_step_s")}))
+
+    # 5) disaggregated serve, the port's entry point
+    Lr = cfg.num_layers
+    rec, n = drive("disagg", lambda: serve.main(
+        ["--requests", "16", "--isl", "512", "--osl", "64", "--slots", "8",
+         "--prefill-engines", "1", "--decode-engines", "2",
+         "--rate-matcher", "elastic"]))
+    sla(rec)
     if rec["completed"] != 16:
         fail(f"serve completed {rec['completed']} of 16")
-    if launches["flash"] < cfg.num_layers * rec["prefills"] or \
-            rec["prefills"] < 16:
-        fail(f"flash kernel: {launches['flash']} launches for "
-             f"{rec['prefills']} prefills")
-    if launches["paged"] < cfg.num_layers * rec["decode_steps"] or \
-            rec["decode_steps"] < 1:
-        fail(f"paged kernel: {launches['paged']} launches for "
+    if n["flash"] < Lr * rec["prefills"] or rec["prefills"] < 16:
+        fail(f"flash kernel: {n['flash']} launches for {rec['prefills']} "
+             "prefills")
+    if n["paged"] < Lr * rec["decode_steps"] or rec["decode_steps"] < 1:
+        fail(f"paged kernel: {n['paged']} launches for "
              f"{rec['decode_steps']} decode steps")
-    torch.cuda.empty_cache()
 
-    # 6) profile: where a prefill and a decode step spend their time
+    # 6) co-located serve: chunked prefill with decode piggybacked
+    rec, n = drive("coloc", lambda: serve.main(
+        ["--mode", "coloc", "--requests", "8", "--isl", "512", "--osl", "64",
+         "--slots", "8", "--prefill-engines", "1", "--decode-engines", "1",
+         "--piggyback-chunk", "64", "--rate-matcher", "none"]))
+    sla(rec)
+    if rec["completed"] != 8 or rec["transfers"] != 0:
+        fail(f"coloc serve: completed {rec['completed']} of 8, transfers "
+             f"{rec['transfers']}")
+    if n["flash"] < Lr * 8 * (512 // 64):
+        fail(f"coloc: {n['flash']} flash launches for 8 prompts of 8 chunks")
+    if n["paged"] < Lr * rec["decode_steps"] or rec["decode_steps"] < 1:
+        fail(f"coloc: {n['paged']} paged launches for "
+             f"{rec['decode_steps']} decode steps")
+
+    # 7) prefix-affinity serve over multi-turn sessions
+    rec, n = drive("prefix", lambda: serve.main(
+        ["--mode", "coloc", "--scheduler", "prefix-affinity", "--workload",
+         "sessions", "--requests", "2", "--turns", "2", "--isl", "256",
+         "--osl", "16", "--piggyback-chunk", "64", "--rate-matcher",
+         "none"]))
+    sla(rec)
+    if rec["completed"] != 4 or rec["prefix_hits"] <= 0:
+        fail(f"prefix-affinity serve: completed {rec['completed']} of 4, "
+             f"prefix hits {rec['prefix_hits']}")
+    if n["flash"] < Lr or n["paged"] < Lr * rec["decode_steps"]:
+        fail(f"prefix-affinity serve: launches {n}")
+
+    # 8) dense layout: a disaggregated cluster of paged=False engines
+    streams = {}
+    rec, n = drive("dense", lambda: dense_serve(torch, cfg, dev, False,
+                                                streams))
+    sla(rec)
+    if rec["completed"] != 4:
+        fail(f"dense serve completed {rec['completed']} of 4")
+    if n["dense"] < Lr * rec["decode_steps"] or rec["decode_steps"] < 1 \
+            or n["paged"] != 0:
+        fail(f"dense serve: launches {n} for {rec['decode_steps']} decode "
+             "steps")
+    t0 = time.perf_counter()
+    dense_serve(torch, cfg, dev, True, streams)     # not counted
+    d, p = streams[False], streams[True]
+    agree = next((i for i, (a, b) in enumerate(zip(d, p)) if a != b),
+                 min(len(d), len(p)))
+    log(f"# dense vs paged, request 0: first {agree} of {len(d)} tokens "
+        f"agree ({time.perf_counter() - t0:.1f} s for the paged run)")
+
+    # 9) profile: where a prefill and a decode step spend their time
+    t0 = time.perf_counter()
     profile_phase(torch, cfg, dev)
+    log(f"# phase profile: {time.perf_counter() - t0:.1f} s")
 
+    def total(name):
+        return sum(n[name] for n in by_path.values())
+
+    source = "src/repro_torch/kernels/{}/csrc/{}.cu"
     kernels = [
         {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
+         "source": source.format("flash_attention", "flash_attention"),
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:81",
-         "launches": launches["flash"], "max_abs_err": fl_err,
+         "launches": total("flash"), "max_abs_err": fl_err,
          **rows["flash"]},
         {"name": "paged_decode_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/decode_attention/csrc/"
-                   "paged_decode.cu",
+         "source": source.format("decode_attention", "paged_decode"),
          "replaces": "src/repro/kernels/decode_attention/paged_decode.py:74",
-         "launches": launches["paged"], "max_abs_err": dec_err,
+         "launches": total("paged"), "max_abs_err": dec_err,
          **rows["paged"]},
+        {"name": "decode_attention", "route": "cuda",
+         "source": source.format("decode_attention", "decode_attention"),
+         "replaces":
+             "src/repro/kernels/decode_attention/decode_attention.py:68",
+         "launches": total("dense"), "max_abs_err": dense_err,
+         **rows["dense"]},
     ]
+    for k, key in zip(kernels, ("flash", "paged", "dense")):
+        k["launches_by_path"] = {path: n[key] for path, n in by_path.items()}
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,8 @@ PyTorch headers, so a build takes seconds, not minutes. Builds happen on
 first CUDA use, one ``nvcc`` per source and all of them at once, into
 ``kernels/build`` inside the package (ignored by git). A library's name
 carries a hash of its source and flags, so an edited source is rebuilt and
-a stale one is never loaded.
+a stale one is never loaded. The hash also covers the headers
+(``*.cuh``) beside a source, which the decode kernels share.
 
 Each C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises when
@@ -49,8 +50,10 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -1,2 +1,3 @@
-"""Paged split-KV decode attention: CUDA kernel (``csrc/``), wrapper
-(``ops``) and plain PyTorch version (``ref``)."""
+"""Split-KV decode attention over a dense cache and over a paged block
+pool: CUDA kernels (``csrc/``), wrappers (``ops``) and plain PyTorch
+versions (``ref``)."""

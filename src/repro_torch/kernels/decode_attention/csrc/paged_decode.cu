@@ -8,7 +8,8 @@
 // read through the block table tables[b, :]. Each CTA covers one split of
 // `pages_per_split` consecutive table entries and writes fp32 online-
 // softmax partials (o unnormalised, m, l); a second, tiny kernel on the
-// same stream merges the splits and writes the bf16 output (the TPU
+// same stream (``split_merge_kernel`` of split_merge.cuh, shared with the
+// dense kernel) merges the splits and writes the bf16 output (the TPU
 // wrapper merges in jnp; here the merge is one launch instead of a dozen
 // small PyTorch ops, which the host could not issue as fast as the card
 // runs them).
@@ -32,27 +33,11 @@
 //   - finite NEG_INF (-1e30), as in the TPU kernel, so the merge of a dead
 //     split never forms -inf - -inf.
 // Not done yet (a later PR): tensor cores, bf16x2 loads in the p*v loop.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "split_merge.cuh"
+
+using namespace split_kv;
 
 namespace {
-
-constexpr int DH = 128;       // head dim (the wrapper checks it)
-constexpr int GMAX = 16;      // most query heads per KV head
-constexpr int TMAX = 128;     // most tokens per split
-constexpr int NTHREADS = 128; // == DH: one thread per output element
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
 
 __global__ void __launch_bounds__(NTHREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B,Hkv,G,DH]
@@ -174,37 +159,6 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,       // [B,Hkv,G,DH]
     if (g < G) op[g * DH + d] = acc[g];
 }
 
-// Cross-split online-softmax merge: one CTA per (KV head, sequence), one
-// thread per output element d, looping over the G heads and the splits.
-// A dead split (m = NEG_INF, l = 0, o = 0) weighs exp(NEG_INF - m_all) = 0;
-// a sequence with no live split gives 0 / 1e-30 = 0, as the wrapper's
-// plain version (``ops._merge_splits``) does.
-__global__ void __launch_bounds__(NTHREADS)
-paged_merge_kernel(const float* __restrict__ o_part,   // [B,Hkv,S,G,DH]
-                   const float* __restrict__ m_part,   // [B,Hkv,S,G]
-                   const float* __restrict__ l_part,
-                   __nv_bfloat16* __restrict__ out,    // [B,Hkv,G,DH]
-                   int G, int n_splits) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const size_t part = (size_t(b) * gridDim.x + h) * n_splits;
-  for (int g = 0; g < G; ++g) {
-    float m_all = NEG_INF;
-    for (int s = 0; s < n_splits; ++s)
-      m_all = fmaxf(m_all, m_part[(part + s) * G + g]);
-    float l_all = 0.f, acc = 0.f;
-    for (int s = 0; s < n_splits; ++s) {
-      const size_t i = (part + s) * G + g;
-      const float a = __expf(m_part[i] - m_all);
-      l_all += l_part[i] * a;
-      acc += o_part[i * DH + d] * a;
-    }
-    out[((size_t(b) * gridDim.x + h) * G + g) * DH + d] =
-        __float2bfloat16(acc / fmaxf(l_all, 1e-30f));
-  }
-}
-
 }  // namespace
 
 // q [B,Hkv,G,128] bf16; pools [N,Bs,Hkv,128] bf16; tables [B,nb] int32;
@@ -233,7 +187,7 @@ extern "C" int paged_decode_fwd(const void* q, const void* pool_k,
       scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  paged_merge_kernel<<<dim3(Hkv, B), NTHREADS, 0, st>>>(
+  split_merge_kernel<<<dim3(Hkv, B), NTHREADS, 0, st>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(m_part),
       static_cast<const float*>(l_part), static_cast<__nv_bfloat16*>(out), G,
       n_splits);

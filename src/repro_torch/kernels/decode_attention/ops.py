@@ -1,12 +1,17 @@
-"""Public wrapper of the paged decode kernel.
+"""Public wrappers of the two split-KV decode kernels.
 
-On CUDA tensors ``decode_attention_paged`` launches the hand-written
-kernels of ``csrc/paged_decode.cu`` (split-KV partials, then the
-cross-split merge) or raises; on CPU tensors it runs the plain version:
-the same partials from ``ref.paged_decode_partials_ref`` and the same
-merge, ``_merge_splits``, in PyTorch (the JAX wrapper merges in jnp
-outside its Pallas kernel). There is no fallback from the kernel to the
-plain path. ``decode_attention_paged.launches`` counts kernel launches.
+- ``decode_attention`` (dense per-slot cache): on CUDA tensors it launches
+  the hand-written kernels of ``csrc/decode_attention.cu`` (split-KV
+  partials, then the shared cross-split merge) or raises; on CPU tensors
+  it runs its plain version, ``ref.decode_attention_ref``.
+- ``decode_attention_paged`` (block pool): on CUDA tensors it launches
+  the kernels of ``csrc/paged_decode.cu`` or raises; on CPU tensors it
+  runs the plain version: the same partials from
+  ``ref.paged_decode_partials_ref`` and the same merge, ``_merge_splits``,
+  in PyTorch (the JAX wrapper merges in jnp outside its Pallas kernel).
+
+There is no fallback from a kernel to its plain path. Each wrapper's
+``launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -17,11 +22,14 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention.ref import paged_decode_partials_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, paged_decode_partials_ref)
 
-SPLIT_TOKENS = 128      # tokens one CTA walks (the kernel's TMAX)
+SPLIT_TOKENS = 128      # tokens one CTA walks (the kernels' TMAX)
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -29,6 +37,14 @@ def _lib():
     lib = _build.load("paged_decode")
     lib.paged_decode_fwd.argtypes = _ARGTYPES
     lib.paged_decode_fwd.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_lib():
+    lib = _build.load("decode_attention")
+    lib.dense_decode_fwd.argtypes = _DENSE_ARGTYPES
+    lib.dense_decode_fwd.restype = ctypes.c_int
     return lib
 
 
@@ -48,25 +64,40 @@ def _merge_splits(o, m, l):
     return o_all / l_all.clamp_min(1e-30)[..., None]
 
 
+def _check_operands(what, qg, **tensors):
+    """Device, dtype (bf16, int32 for ``tables``/``lengths``), contiguity
+    and head geometry: what both decode kernels take."""
+    for name, t in dict(q=qg, **tensors).items():
+        dt = torch.int32 if name in ("tables", "lengths") else torch.bfloat16
+        if t.device != qg.device:
+            raise ValueError(f"{name} on {t.device}, q on {qg.device}")
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dt}, got "
+                             f"{t.dtype}")
+    G, dh = qg.shape[2:]
+    if dh != 128 or G > 16:
+        raise ValueError(f"{what}: needs dh == 128 and G <= 16, got dh={dh}, "
+                         f"G={G}")
+
+
+def _partials(qg, n_splits):
+    """Scratch (o, m, l) fp32 partials and the bf16 output."""
+    B, Hkv, G, dh = qg.shape
+    o = torch.empty((B, Hkv, n_splits, G, dh), dtype=torch.float32,
+                    device=qg.device)
+    m = torch.empty((B, Hkv, n_splits, G), dtype=torch.float32,
+                    device=qg.device)
+    return o, m, torch.empty_like(m), torch.empty_like(qg)
+
+
 def _kernel(qg, pool_k, pool_v, tables, lengths):
     """Launch the split kernel and the merge kernel; returns [B,Hkv,G,dh]
     in bf16."""
     B, Hkv, G, dh = qg.shape
     Bs = pool_k.shape[1]
     nb = tables.shape[1]
-    for name, t, dt in (("q", qg, torch.bfloat16),
-                        ("pool_k", pool_k, torch.bfloat16),
-                        ("pool_v", pool_v, torch.bfloat16),
-                        ("tables", tables, torch.int32),
-                        ("lengths", lengths, torch.int32)):
-        if t.device != qg.device:
-            raise ValueError(f"{name} on {t.device}, q on {qg.device}")
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"paged decode kernel: {name} must be "
-                             f"contiguous {dt}, got {t.dtype}")
-    if dh != 128 or G > 16:
-        raise ValueError(f"paged decode kernel: needs dh == 128 and "
-                         f"G <= 16, got dh={dh}, G={G}")
+    _check_operands("paged decode kernel", qg, pool_k=pool_k, pool_v=pool_v,
+                    tables=tables, lengths=lengths)
     if (pool_v.shape != pool_k.shape or pool_k.dim() != 4
             or tuple(pool_k.shape[2:]) != (Hkv, dh)
             or tables.dim() != 2 or tables.shape[0] != B
@@ -78,10 +109,7 @@ def _kernel(qg, pool_k, pool_v, tables, lengths):
     pps = pages_per_split(Bs)
     S = -(-nb // pps)
     dev = qg.device
-    o = torch.empty((B, Hkv, S, G, dh), dtype=torch.float32, device=dev)
-    m = torch.empty((B, Hkv, S, G), dtype=torch.float32, device=dev)
-    l = torch.empty_like(m)
-    out = torch.empty_like(qg)
+    o, m, l, out = _partials(qg, S)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _lib().paged_decode_fwd(
@@ -127,3 +155,51 @@ def decode_attention_paged_plain(q, pool_k, pool_v, tables, lengths):
 
 
 decode_attention_paged.launches = 0
+
+
+def _dense_kernel(qg, k_cache, v_cache, lengths):
+    """Launch the dense split kernel and the merge kernel; returns
+    [B,Hkv,G,dh] in bf16."""
+    B, Hkv, G, dh = qg.shape
+    _check_operands("dense decode kernel", qg, k_cache=k_cache,
+                    v_cache=v_cache, lengths=lengths)
+    if (v_cache.shape != k_cache.shape or k_cache.dim() != 4
+            or k_cache.shape[0] != B
+            or tuple(k_cache.shape[2:]) != (Hkv, dh)
+            or tuple(lengths.shape) != (B,)):
+        raise ValueError(f"dense decode kernel: q {tuple(qg.shape)}, caches "
+                         f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, "
+                         f"lengths {tuple(lengths.shape)} do not fit "
+                         "together")
+    Smax = k_cache.shape[1]
+    S = -(-Smax // SPLIT_TOKENS)
+    dev = qg.device
+    o, m, l, out = _partials(qg, S)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _dense_lib().dense_decode_fwd(
+            qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
+            out.data_ptr(), B, Smax, Hkv, G, S, 1.0 / math.sqrt(dh), stream)
+    _build.check(err, "dense_decode_fwd")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, lengths):
+    """Dense-cache decode attention. q: [B,H,dh]; caches:
+    [B,Smax,Hkv,dh]; lengths: [B] int32 live rows per sequence (clamped to
+    Smax). Returns [B,H,dh] in q.dtype."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    B, H, dh = q.shape
+    if H % k_cache.shape[2]:
+        raise ValueError(f"H={H} is not a multiple of Hkv="
+                         f"{k_cache.shape[2]}")
+    qg = q.reshape(B, k_cache.shape[2], -1, dh).contiguous()
+    return _dense_kernel(qg, k_cache, v_cache, lengths).reshape(B, H, dh)
+
+
+decode_attention.launches = 0

@@ -1,8 +1,13 @@
-"""Plain PyTorch version of the paged decode kernel: the CPU path of
-``ops.decode_attention_paged`` and the oracle the CUDA kernel is held
-against. It computes the kernel's own outputs — fp32 split partials
-(o, m, l), one split per ``pages_per_split`` table entries — so the CPU
-path runs the same split algebra and the same merge as the card."""
+"""Plain PyTorch versions of the two decode kernels: the CPU paths of
+``ops.decode_attention`` and ``ops.decode_attention_paged`` and the
+oracles the CUDA kernels are held against.
+
+- ``decode_attention_ref`` (dense cache): one softmax over each row's
+  live columns, as the JAX package's ``decode_attention_ref``.
+- ``paged_decode_partials_ref`` (block pool): the paged kernel's own
+  outputs — fp32 split partials (o, m, l), one split per
+  ``pages_per_split`` table entries — so the CPU path runs the same split
+  algebra and the same merge as the card."""
 from __future__ import annotations
 
 import math
@@ -38,3 +43,24 @@ def paged_decode_partials_ref(qg, pool_k, pool_v, tables, lengths, *,
     l = p.sum(dim=-1)
     o = torch.einsum("bhsgt,bsthd->bhsgd", p, v)
     return o, m, l
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths):
+    """q: [B,H,dh]; caches: [B,Smax,Hkv,dh]; lengths: [B] (query head h
+    reads KV head h // (H/Hkv)). Row b attends over its first lengths[b]
+    cache rows (all Smax when lengths[b] >= Smax). fp32 math, output in
+    q.dtype; a row with length 0 gives 0, as the kernel's finite NEG_INF
+    and m > 0.5*NEG_INF guard do."""
+    B, H, dh = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float()) / math.sqrt(dh)
+    valid = (torch.arange(Smax, device=q.device)[None, :]
+             < lengths.to(q.device).long()[:, None])             # [B,Smax]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    p = torch.where(m > 0.5 * NEG_INF, p, torch.zeros_like(p))
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return o.reshape(B, H, dh).to(q.dtype)

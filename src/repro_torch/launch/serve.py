@@ -1,26 +1,37 @@
-"""Disaggregated serving launcher of the port.
+"""Serving launcher of the port: disaggregated or co-located.
 
-Runs the model through the policy-driven ``Cluster`` runtime — a prefill
-pool and a decode pool of PyTorch ``Engine``s sharing one copy of the
-weights, paged KV handoff, continuous batching, pluggable scheduler /
-router / rate matcher — fed by a ``repro_torch.workloads`` scenario, and
-prints SLA metrics as one JSON object.
+Runs the model through the policy-driven ``Cluster`` runtime — PyTorch
+``Engine``s sharing one copy of the weights, continuous batching,
+pluggable scheduler / router / rate matcher — fed by a
+``repro_torch.workloads`` scenario, and prints SLA metrics as one JSON
+object. ``--mode disagg`` (the default) runs a prefill pool and a decode
+pool with paged KV handoff; ``--mode coloc`` runs one ``"mixed"`` pool of
+``--prefill-engines + --decode-engines`` engines with chunked prefill and
+decode piggybacked between chunks (``ChunkedPiggybackScheduler``) and the
+``kv-locality`` router, so no KV crosses engines.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --prefill-engines 1 --decode-engines 2 --requests 16 --isl 512 \\
       --osl 64 --slots 8 --rate-matcher elastic
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode coloc \\
+      --scheduler prefix-affinity --workload sessions --turns 2
 
 The full configuration runs on the card (``--device`` defaults to
 ``cuda``); ``--smoke`` takes the smoke-sized configuration and
 ``--device cpu`` the plain PyTorch path, as the tests do. Engines default
 to the ``h100`` chip class, so the virtual clock reads measured card time.
-Not yet ported: ``--backend sim``, ``--calibrate``, ``--trace-out``,
-``--mode coloc`` and the chunked schedulers (they need chunked prefill).
+
+Where it differs from ``repro.launch.serve``: the engines' capacity also
+holds the pad that chunked prefill adds to a prompt (up to a chunk less
+one token), which the reference's capacity leaves out. Not yet ported:
+``--backend sim``, ``--calibrate``, ``--trace`` (trace replay) and
+``--trace-out`` (span tracing).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from typing import Any, Dict
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
@@ -29,17 +40,22 @@ from repro_torch.serving.backends import (BACKENDS, init_torch_params,
                                           make_engine)
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.elastic import ElasticConfig, ElasticRateMatcher
-from repro_torch.serving.policies import (ElasticPolicy, FCFSScheduler,
+from repro_torch.serving.policies import (ChunkedPiggybackScheduler,
+                                          ElasticPolicy, FCFSScheduler,
                                           FirstFitRouter, KVLocalityRouter,
-                                          LeastLoadedRouter, PriorityScheduler,
+                                          LeastLoadedRouter,
+                                          PrefixAffinityScheduler,
+                                          PriorityScheduler,
                                           RoundRobinRouter,
                                           StaticSplitRateMatcher)
 from repro_torch.workloads import (Burst, Diurnal, FixedShape,
-                                   OpenLoopWorkload, Poisson)
+                                   OpenLoopWorkload, Poisson,
+                                   SessionWorkload)
 
 SCHEDULERS = {
-    "fcfs": FCFSScheduler,
-    "priority": PriorityScheduler,
+    "fcfs": lambda chunk: FCFSScheduler(),
+    "priority": lambda chunk: PriorityScheduler(),
+    "prefix-affinity": lambda chunk: PrefixAffinityScheduler(chunk=chunk),
 }
 ROUTERS = {
     "first-fit": FirstFitRouter,
@@ -47,11 +63,19 @@ ROUTERS = {
     "least-loaded": LeastLoadedRouter,
     "kv-locality": KVLocalityRouter,
 }
-WORKLOADS = ("poisson", "burst", "diurnal")
+WORKLOADS = ("poisson", "burst", "diurnal", "sessions")
 
 
 def build_workload(args, vocab: int):
     """(workload, expected_completions) from the CLI axis."""
+    if args.workload == "sessions":
+        w = SessionWorkload(vocab=vocab, seed=args.seed,
+                            sessions=args.requests, turns=args.turns,
+                            families=max(args.requests // 2, 1),
+                            system_prefix_len=args.isl // 2,
+                            user_isl=max(args.isl // 2, 1), osl=args.osl,
+                            think_time=args.think_time)
+        return w, args.requests * args.turns
     arrivals = {
         "poisson": lambda: Poisson(args.rate),
         "burst": lambda: Burst(args.requests),
@@ -73,12 +97,20 @@ def main(argv=None) -> Dict[str, Any]:
                     help="torch device (default: cuda; 'cpu' runs the "
                     "plain PyTorch path)")
     ap.add_argument("--backend", choices=BACKENDS, default="torch")
-    ap.add_argument("--mode", choices=["disagg"], default="disagg")
+    ap.add_argument("--mode", choices=["disagg", "coloc"], default="disagg")
     ap.add_argument("--scheduler", choices=sorted(SCHEDULERS), default="fcfs")
-    ap.add_argument("--router", choices=sorted(ROUTERS), default="round-robin")
+    ap.add_argument("--router", choices=sorted(ROUTERS), default=None,
+                    help="default: round-robin (disagg) / kv-locality "
+                    "(coloc)")
     ap.add_argument("--rate-matcher", choices=["none", "elastic", "static"],
                     default="elastic")
-    ap.add_argument("--workload", choices=WORKLOADS, default="poisson")
+    ap.add_argument("--workload", choices=WORKLOADS, default="poisson",
+                    help="arrival/scenario shape; 'sessions' is closed-loop "
+                    "multi-turn (--requests = #conversations)")
+    ap.add_argument("--turns", type=int, default=3,
+                    help="turns per conversation for --workload sessions")
+    ap.add_argument("--think-time", type=float, default=0.05,
+                    help="seconds between a turn's completion and the next")
     ap.add_argument("--static-alpha", type=float, default=0.5,
                     help="prefill:decode ratio for --rate-matcher static")
     ap.add_argument("--prefill-engines", type=int, default=1)
@@ -93,58 +125,114 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--isl", type=int, default=48)
     ap.add_argument("--osl", type=int, default=12)
     ap.add_argument("--rate", type=float, default=20.0)
+    ap.add_argument("--piggyback-chunk", type=int, default=16,
+                    help="prefill chunk of --mode coloc and of the prefix "
+                    "cache (--scheduler prefix-affinity)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.scheduler == "prefix-affinity" and args.piggyback_chunk <= 0:
+        ap.error("--scheduler prefix-affinity needs --piggyback-chunk > 0 "
+                 "(engines must be built with a PrefixCache)")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
     params = init_torch_params(cfg, args.seed, device=args.device)
     work, expected = build_workload(args, cfg.vocab_size)
-    capacity = args.isl + args.osl + 8
+    # one chunk value feeds both the engines' PrefixCache and the scheduler
+    chunk = (args.piggyback_chunk
+             if args.scheduler == "prefix-affinity" else 0)
+    piggyback = args.mode == "coloc" and args.scheduler == "fcfs"
+    capacity = chunk_capacity(args, work, chunk or (
+        args.piggyback_chunk if piggyback else 0))
 
     built = []      # every engine, including any the matcher drains
 
     def mk(i, chip_name):
         built.append(make_engine(
             args.backend, i, cfg, params, slots=args.slots,
-            capacity=capacity, chip=get_chip(chip_name),
+            capacity=capacity, chunk_size=chunk, chip=get_chip(chip_name),
             device=params["embed"].device))
         return built[-1]
 
+    scheduler = SCHEDULERS[args.scheduler](chunk)
+    sched_name = args.scheduler
     rate_matcher = {
         "none": lambda: None,
         "elastic": lambda: ElasticPolicy(
             ElasticRateMatcher(ElasticConfig())),
         "static": lambda: StaticSplitRateMatcher(args.static_alpha),
     }[args.rate_matcher]()
-    cluster = Cluster(
-        {"prefill": [mk(i, args.prefill_chip)
-                     for i in range(args.prefill_engines)],
-         "decode": [mk(100 + i, args.decode_chip)
-                    for i in range(args.decode_engines)]},
-        scheduler=SCHEDULERS[args.scheduler](),
-        router=ROUTERS[args.router](), rate_matcher=rate_matcher)
+    if args.mode == "disagg":
+        router_name = args.router or "round-robin"
+        rm_name = args.rate_matcher
+        cluster = Cluster(
+            {"prefill": [mk(i, args.prefill_chip)
+                         for i in range(args.prefill_engines)],
+             "decode": [mk(100 + i, args.decode_chip)
+                        for i in range(args.decode_engines)]},
+            scheduler=scheduler, router=ROUTERS[router_name](),
+            rate_matcher=rate_matcher)
+    else:
+        if piggyback and args.piggyback_chunk:
+            scheduler = ChunkedPiggybackScheduler(args.piggyback_chunk)
+            sched_name = f"chunked-piggyback:{args.piggyback_chunk}"
+        if args.rate_matcher != "none":
+            print(f"note: --rate-matcher {args.rate_matcher} ignored in "
+                  "coloc mode (a single mixed pool has no split to size)",
+                  file=sys.stderr)
+        rate_matcher = None
+        router_name = args.router or "kv-locality"
+        rm_name = "none"
+        if args.decode_chip != args.prefill_chip:
+            print("note: coloc mode runs one mixed pool; using "
+                  f"--prefill-chip {args.prefill_chip} for every engine",
+                  file=sys.stderr)
+        cluster = Cluster(
+            {"mixed": [mk(i, args.prefill_chip)
+                       for i in range(args.prefill_engines
+                                      + args.decode_engines)]},
+            scheduler=scheduler, router=ROUTERS[router_name](),
+            rate_matcher=None)
     metrics = cluster.serve(work)
+    n_prefills = sum(e.prefills for e in built)
+    n_decode = sum(e.decode_steps for e in built)
     extra = {"transfers": cluster.stats.transfers,
              "transferred_MB": cluster.stats.transferred_bytes / 2**20,
-             "prefill_pool": len(cluster.prefill_pool),
-             "decode_pool": len(cluster.decode_pool),
              "hardware": cluster.pool_hardware(),
              "device": str(params["embed"].device),
-             "prefills": sum(e.prefills for e in built),
-             "decode_steps": sum(e.decode_steps for e in built),
+             "capacity": capacity,
+             "prefills": n_prefills,
+             "decode_steps": n_decode,
+             "prefix_hits": sum(e.prefix_cache.hits for e in built
+                                if e.prefix_cache is not None),
              "mean_prefill_step_s": sum(e.prefill_s for e in built)
-             / max(sum(e.prefills for e in built), 1),
+             / max(n_prefills, 1),
              "mean_decode_step_s": sum(e.decode_s for e in built)
-             / max(sum(e.decode_steps for e in built), 1)}
+             / max(n_decode, 1)}
+    if args.mode == "disagg":
+        extra["prefill_pool"] = len(cluster.prefill_pool)
+        extra["decode_pool"] = len(cluster.decode_pool)
     if rate_matcher is not None:
         extra["rate_matcher_moves"] = rate_matcher.moves
     record = {"arch": cfg.name, "mode": args.mode, "backend": args.backend,
-              "workload": args.workload, "scheduler": args.scheduler,
-              "router": args.router, "rate_matcher": args.rate_matcher,
+              "workload": args.workload, "scheduler": sched_name,
+              "router": router_name, "rate_matcher": rm_name,
               **{k: round(v, 4) for k, v in metrics.items()}, **extra}
     print(json.dumps(record, indent=1, default=str))
     assert metrics["completed"] == expected
     return record
+
+
+def chunk_capacity(args, work, chunk: int) -> int:
+    """Engine capacity: the workload's largest context (its ``max_context``
+    where it has one, else isl + osl) plus 8, as the reference's launcher,
+    plus the pad that chunked prefill adds to a prompt. A fixed-shape
+    prompt pads by ``(-isl) % chunk``; a session turn's length is not known
+    ahead, so up to ``chunk - 1``."""
+    max_ctx = getattr(work, "max_context", lambda: None)()
+    pad = 0
+    if chunk:
+        pad = chunk - 1 if max_ctx else (-args.isl) % chunk
+    return (max_ctx or (args.isl + args.osl)) + 8 + pad
 
 
 if __name__ == "__main__":

@@ -11,12 +11,20 @@ hand-written CUDA kernels of ``repro_torch.kernels`` (on a CPU tensor their
 wrappers run the plain version), ``"plain"`` runs the plain PyTorch
 versions on any device. The serving engine picks ``"kernel"`` on CUDA.
 
-Only the paged KV layout is here: a block pool ``{"k","v":
-[N, Bs, Hkvp, dh]}`` shared by all layers and requests, addressed through
-per-layer block tables ``[L, slots, nb]`` (int32). Block 0 is the trash
-block: padded table columns and inactive decode slots point at it, and no
-live position ever reads it. The dense cache layout, chunked prefill,
-MoE and the recurrent families come with later slices.
+Two KV layouts, as in the reference:
+
+- **dense**: ``{"k","v": [L, B, C, Hkvp, dh], "pos": [B]}``, one row of
+  capacity C per slot (``init_cache``, ``decode_step``,
+  ``prefill_chunked``);
+- **paged**: a block pool ``{"k","v": [N, Bs, Hkvp, dh]}`` shared by all
+  layers and requests, addressed through per-layer block tables
+  ``[L, slots, nb]`` (int32). Block 0 is the trash block: padded table
+  columns and inactive decode slots point at it, and no live position
+  ever reads it.
+
+Both layouts are updated in place where the reference's jit returns new
+arrays (or donates them). MoE, kv-quant, the sliding window and the
+recurrent families come with later slices (``unported`` names which).
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention.ops import decode_attention_paged
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                     decode_attention_paged)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
@@ -40,12 +49,28 @@ def _check_impl(impl: str) -> None:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
 
 
+def unported(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` cannot run on the port yet (the slice that brings it),
+    or None for the dense attention family it covers."""
+    if cfg.block == "rwkv":
+        return "RWKV-6 blocks come with the RWKV-6 slice (kernel 4)"
+    if cfg.block != "attn":
+        return f"{cfg.block} blocks come with the hybrid slice"
+    if cfg.kv_quant:
+        return "kv-quant comes with the kv-quant / sliding-window slice"
+    if cfg.sliding_window:
+        return "the sliding window comes with the kv-quant / sliding-window slice"
+    if cfg.moe is not None:
+        return "MoE comes with the MoE slice"
+    if cfg.frontend:
+        return f"the {cfg.frontend} frontend comes with the hybrid slice"
+    return None
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.block != "attn" or cfg.moe is not None or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family is ported so far "
-            f"(block={cfg.block}, moe={cfg.moe is not None}, "
-            f"frontend={cfg.frontend})")
+    why = unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"{cfg.name}: {why}")
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +222,7 @@ def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
     B, S, _ = x.shape
     positions = pos_offset + torch.arange(S, device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, positions)
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window attention: later slice")
+    _check_family(cfg)
     if impl == "kernel":
         _kernel_ok(cfg)
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
@@ -211,8 +235,10 @@ def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
 
 
 def _decode_attend(q, kd, vd, valid, cfg: ModelConfig):
-    """Single-token attention core of the plain paged path: q [B,1,Hp,dh]
-    against kd/vd [B,C,Hkvp,dh] with validity mask [B,C]."""
+    """Single-token attention core of the plain dense and paged paths:
+    q [B,1,Hp,dh] against kd/vd [B,C,Hkvp,dh] with validity mask [B,C].
+    One core for both layouts, as in the reference: masked columns add
+    exact zeros, so the two layouts' plain streams agree."""
     B = q.shape[0]
     scale = 1.0 / math.sqrt(cfg.dh)
     Hkvp = cfg.padded_kv_heads
@@ -233,6 +259,76 @@ def _decode_attend(q, kd, vd, valid, cfg: ModelConfig):
     pr = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", pr.to(vr.dtype).float(),
                         vr.float())
+
+
+def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
+                impl: str = "kernel"):
+    """One decode token against the dense layout. x1: [B,1,D] (normed);
+    caches [B,C,Hkvp,dh]; pos: [B] int32 per-slot positions. Writes this
+    token's K/V at ``min(pos, C-1)`` (in place: the reference returns new
+    caches), then attends over the columns ``<= pos``. ``impl="kernel"``
+    is kernel 3 with ``lengths = min(pos+1, C)``; ``"plain"`` the shared
+    ``_decode_attend`` core."""
+    _check_impl(impl)
+    B, C = x1.shape[0], k_cache.shape[1]
+    q, k, v = _qkv(p, x1, cfg, pos[:, None])
+    pos_l = pos.long()
+    bidx = torch.arange(B, device=x1.device)
+    slot = pos_l.clamp(max=C - 1)
+    k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
+    v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
+    if impl == "kernel":
+        _kernel_ok(cfg)
+        lengths = (pos_l + 1).clamp(max=C).to(torch.int32)
+        o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                             lengths)[:, None]
+    else:
+        valid = torch.arange(C, device=x1.device)[None, :] <= pos_l[:, None]
+        o = _decode_attend(q, k_cache, v_cache, valid, cfg)
+    return _attn_out(p, o.to(x1.dtype), cfg), (k_cache, v_cache)
+
+
+def _chunk_attend(q, kr, vr, mask, cfg: ModelConfig):
+    """Mask-based chunk-attention core of the plain dense and paged
+    prefill paths: q [B,Sq,Hp,dh] against expanded kr/vr [B,C,Hp,dh] with
+    causal mask [Sq,C]."""
+    scale = 1.0 / math.sqrt(cfg.dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    s = torch.where(mask[None, None], s, torch.full_like(s, L.NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pr.to(vr.dtype).float(),
+                        vr.float())
+
+
+def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
+               impl: str = "kernel"):
+    """Prefill chunk: x [B,Sq,D] (normed) is tokens [off, off+Sq); the
+    caches [B,C,Hkvp,dh] hold [0, off) and take this chunk's K/V in place.
+    ``impl="kernel"`` runs the flash kernel on the first off+Sq cache rows
+    with ``q_offset=off`` (the mask ``kpos <= qpos`` the reference applies
+    over all C columns is the kernel's causal mask); ``"plain"`` mirrors
+    the reference's mask-based core."""
+    _check_impl(impl)
+    B, Sq, _ = x.shape
+    off = int(kv_offset)
+    positions = off + torch.arange(Sq, device=x.device)[None, :]
+    q, k, v = _qkv(p, x, cfg, positions)
+    k_cache[:, off:off + Sq] = k.to(k_cache.dtype)
+    v_cache[:, off:off + Sq] = v.to(v_cache.dtype)
+    if impl == "kernel":
+        _kernel_ok(cfg)
+        o = flash_attention(q.contiguous(),
+                            k_cache[:, :off + Sq].contiguous(),
+                            v_cache[:, :off + Sq].contiguous(),
+                            causal=True, q_offset=off)
+    else:
+        hmap = _head_map(cfg, x.device)
+        C = k_cache.shape[1]
+        qpos = positions[0][:, None]
+        mask = torch.arange(C, device=x.device)[None, :] <= qpos
+        o = _chunk_attend(q, L.expand_kv(k_cache, hmap),
+                          L.expand_kv(v_cache, hmap), mask, cfg)
+    return _attn_out(p, o.to(x.dtype), cfg), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +372,74 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
             cache[key] = torch.cat([c, pad], dim=2)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
+    """Empty dense cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B] int32}
+    (decoding starts at pos 0); the attention branch of the reference's
+    ``init_cache``."""
+    _check_family(cfg)
+    shape = (cfg.num_layers, batch, capacity, cfg.padded_kv_heads, cfg.dh)
+    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _layer_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
+                  impl: str):
+    xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
+    attn_out, _ = attn_decode(p, xn, cfg, k_cache, v_cache, pos, impl=impl)
+    return _ffn(p, x1 + attn_out, cfg)
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens,
+                impl: str = "kernel"):
+    """Batched decode step on the dense layout. tokens: [B]. Returns
+    (logits [B,Vp] fp32, cache) with ``pos + 1`` for every slot, as the
+    reference (inactive slots advance too; their writes clamp at C-1 and
+    nothing live reads them). K/V are updated in place."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, tokens[:, None])
+    pos = cache["pos"]
+    for i, p in enumerate(params["blocks"]):
+        x = _layer_decode(p, x, cfg, cache["k"][i], cache["v"][i], pos,
+                          impl)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (_logits(params, cfg, x[:, 0]),
+            {"k": cache["k"], "v": cache["v"], "pos": pos + 1})
+
+
+def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
+                    capacity: Optional[int] = None, impl: str = "kernel",
+                    cache=None, start: int = 0):
+    """Chunked (Sarathi-style) prefill on the dense layout: the prompt in
+    ``chunk_size`` pieces, the cache carried between chunks. ``cache`` /
+    ``start`` resume from a cached prefix (tokens[:, :start] already in the
+    cache); that cache is written in place. Returns (logits [B,Vp] fp32 at
+    the last input position, cache with ``pos`` = the input length)."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, inputs["tokens"])
+    B, S, _ = x.shape
+    capacity = capacity or S
+    if (S - start) % chunk_size or start % chunk_size:
+        raise ValueError(f"prompt {S} / start {start} not in whole chunks "
+                         f"of {chunk_size}")
+    if S > capacity:
+        raise ValueError(f"prompt {S} exceeds the cache capacity {capacity}")
+    if cache is None:
+        cache = init_cache(cfg, B, capacity, device=x.device)
+    out = x[:, :0]
+    for lo in range(start, S, chunk_size):
+        out = x[:, lo:lo + chunk_size]
+        for i, p in enumerate(params["blocks"]):
+            xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
+            attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i],
+                                     cache["v"][i], lo, impl=impl)
+            out = _ffn(p, out + attn_out, cfg)
+    out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, out[:, -1]), {
+        "k": cache["k"], "v": cache["v"],
+        "pos": torch.full((B,), S, dtype=torch.int32, device=x.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -360,3 +524,65 @@ def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
         x = _ffn(p, x + attn_out, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, 0]), pool, pos + 1
+
+
+def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
+                          pool, tables, *, start: int = 0,
+                          impl: str = "kernel"):
+    """Chunked prefill that appends straight into the request's blocks (no
+    dense B=1 cache). B=1; tables: [L, nb] covering the prompt;
+    ``chunk_size % block_size == 0`` so every chunk lands on block
+    boundaries. ``start`` resumes after a prefix-cache hit (those blocks
+    already hold the prefix KV). Each chunk writes its K/V into its blocks
+    (in place), gathers the table window and attends: ``impl="kernel"``
+    through the flash kernel on the first lo+chunk gathered rows with
+    ``q_offset=lo`` and un-expanded GQA (the reference's ``"pallas"``
+    branch), ``"plain"`` through the mask-based core over the whole window
+    (its ``"xla"`` branch). Returns (logits [1,Vp] fp32, pool)."""
+    _check_family(cfg)
+    x = embed_tokens(params, cfg, inputs["tokens"])
+    B, S, _ = x.shape
+    Bs = pool["k"].shape[1]
+    Hkvp, dh = cfg.padded_kv_heads, cfg.dh
+    nb = tables.shape[1]
+    W = nb * Bs
+    if B != 1:
+        raise ValueError("paged prefill is per request (B=1)")
+    if chunk_size % Bs:
+        raise ValueError(f"chunk {chunk_size} is not block-aligned ({Bs})")
+    if (S - start) % chunk_size or start % chunk_size:
+        raise ValueError(f"prompt {S} / start {start} not in whole chunks "
+                         f"of {chunk_size}")
+    if S > W:
+        raise ValueError(f"prompt {S} exceeds the table window {W}")
+    cb = chunk_size // Bs
+    pk, pv = pool["k"], pool["v"]
+    hmap = _head_map(cfg, x.device)
+    out = x[:, :0]
+    for lo in range(start, S, chunk_size):
+        out = x[:, lo:lo + chunk_size]
+        positions = lo + torch.arange(chunk_size, device=x.device)[None, :]
+        ctx = lo + chunk_size
+        for p, tbl in zip(params["blocks"], tables):
+            xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
+            q, k, v = _qkv(p, xn, cfg, positions)
+            wids = tbl[lo // Bs:lo // Bs + cb].long()
+            pk.index_copy_(0, wids, k[0].reshape(cb, Bs, Hkvp, dh).to(pk.dtype))
+            pv.index_copy_(0, wids, v[0].reshape(cb, Bs, Hkvp, dh).to(pv.dtype))
+            if impl == "kernel":
+                _kernel_ok(cfg)
+                live = tbl[:ctx // Bs].long()
+                o = flash_attention(q.contiguous(),
+                                    pk[live].reshape(1, ctx, Hkvp, dh),
+                                    pv[live].reshape(1, ctx, Hkvp, dh),
+                                    causal=True, q_offset=lo)
+            else:
+                kd = pk[tbl.long()].reshape(1, W, Hkvp, dh)
+                vd = pv[tbl.long()].reshape(1, W, Hkvp, dh)
+                mask = (torch.arange(W, device=x.device)[None, :]
+                        <= positions[0][:, None])
+                o = _chunk_attend(q, L.expand_kv(kd, hmap),
+                                  L.expand_kv(vd, hmap), mask, cfg)
+            out = _ffn(p, out + _attn_out(p, o.to(out.dtype), cfg), cfg)
+    out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
+    return _logits(params, cfg, out[:, -1]), pool

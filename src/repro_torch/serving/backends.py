@@ -16,8 +16,9 @@ def make_engine(backend: str, engine_id: int, cfg, params=None, **kw):
     """Build one engine of the requested backend. ``"torch"`` needs
     ``params`` (from ``init_torch_params`` or ``convert.from_reference``);
     keywords — ``slots``, ``capacity``, ``chip``, ``block_size``,
-    ``device``, ... — go to ``Engine``. The device defaults to ``cuda``,
-    and with no card present that raises."""
+    ``paged`` (False: the dense layout), ``pool_blocks``, ``chunk_size``
+    (non-zero: a ``PrefixCache``), ``device``, ... — go to ``Engine``. The
+    device defaults to ``cuda``, and with no card present that raises."""
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}; known: {BACKENDS}")
     from repro_torch.serving.engine import Engine

@@ -10,8 +10,9 @@ them).
 
 Traffic comes in through ``serve(workload)``: a ``repro_torch.workloads``
 ``Workload`` is pulled incrementally as the virtual clock advances and is
-fed every completion back. ``run(requests)`` is the static special case (a
-``StaticWorkload``).
+fed every completion back, so closed-loop scenarios (multi-turn sessions
+whose turn N+1 only exists after turn N finishes) are first-class.
+``run(requests)`` is the static special case (a ``StaticWorkload``).
 
 Every scheduling decision is delegated to three pluggable seams
 (``serving/policies.py``):
@@ -20,7 +21,13 @@ Every scheduling decision is delegated to three pluggable seams
   2. prefill->decode placement    -> ``Router``
   3. pool sizing over time        -> ``RateMatcher``
 
-Disaggregated serving is ``Cluster({"prefill": [...], "decode": [...]})``.
+The paper's two deployment archetypes are configurations, not code paths:
+
+  disagg    = Cluster({"prefill": [...], "decode": [...]}, ...)
+  colocated = Cluster({"mixed": [...]},
+                      scheduler=ChunkedPiggybackScheduler(...),
+                      router=KVLocalityRouter())
+
 Unlike the reference, this copy carries no invariant sanitizer, span
 recorder or streaming-metrics hooks; those modules are not ported yet.
 

@@ -1,24 +1,35 @@
 """Executable serving engine on PyTorch: prefill and decode on the card.
 
 One ``Engine`` = one model instance (shared params + step functions)
-playing a *role* (prefill / decode); engines are role-reassignable at
-runtime, so elastic scaling is a pool-list operation. It has the surface
-``Cluster`` drives: ``prefill``, ``insert``, ``evict``, ``decode_step``,
-``has_free_slot``, ``active``, ``fail``, ``slow_down``,
-``capacity_weight``, ``describe``, ``step_times``, ``slot_req``,
-``prefix_cache`` (None), ``paged``, ``mean_step_s`` and ``_alloc``.
+playing a *role* (prefill / decode / mixed); engines are role-reassignable
+at runtime, so elastic scaling is a pool-list operation. It has the
+surface ``Cluster`` drives: ``prefill``, ``prefill_chunked``, ``insert``,
+``evict``, ``decode_step``, ``has_free_slot``, ``active``, ``fail``,
+``slow_down``, ``capacity_weight``, ``describe``, ``step_times``,
+``slot_req``, ``prefix_cache``, ``paged`` and ``mean_step_s``.
 
-This slice ports the **paged** KV layout of ``repro.serving.engine``: KV
-lives in a block pool ``[num_blocks, block_size, Hkvp, dh]`` shared by all
-layers and slots, addressed through per-layer block tables (the host-side
-refcounts are ``serving/blocks.py``). ``insert`` scatters only the
-request's blocks, ``evict`` is an O(1) refcount decrement per block, and
-decode attends over a pow2-bucketed window that tracks the active context.
-The dense layout, chunked prefill and the prefix cache come with the next
-slice.
+Decode batches continuously over fixed slots. Two KV layouts share that
+surface, as in ``repro.serving.engine``:
 
-On a CUDA device every prefill runs the hand-written flash-attention
-kernel and every decode step the paged decode kernel (``impl="kernel"``);
+- **paged** (the default): KV lives in a block pool ``[num_blocks,
+  block_size, Hkvp, dh]`` shared by all layers and slots, addressed
+  through per-layer block tables (the host-side refcounts are
+  ``serving/blocks.py``). ``insert`` scatters only the request's blocks,
+  ``evict`` is an O(1) refcount decrement per block, decode attends over a
+  pow2-bucketed window that tracks the active context, and the prefix
+  cache shares blocks between entries by refcount, never by copy.
+- **dense** (``paged=False``): one ``[slots, capacity]``-wide cache with
+  per-slot positions.
+
+``prefill_chunked`` runs the prompt in chunks (the co-located piggyback
+path) and, for an engine built with ``chunk_size``, consults and fills a
+``PrefixCache``. As in the reference, a prompt is padded with token 0 to
+whole chunks, and the padded prompt is what the model sees: the first
+token is read at its last position, and decoding continues after the pad.
+
+On a CUDA device every prefill (whole or chunked) runs the hand-written
+flash-attention kernel, every paged decode step the paged decode kernel
+and every dense decode step the dense decode kernel (``impl="kernel"``);
 on the CPU the same calls run their plain PyTorch versions. The kernels
 are built when the engine is made, never inside a timed step.
 
@@ -43,11 +54,7 @@ from repro_torch.kernels import _build
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.blocks import BlockAllocator, BlockPoolExhausted
-from repro_torch.serving.common import EngineFailure, StepLog
-
-NEXT_SLICE = ("the dense KV layout, chunked prefill and the prefix cache "
-              "come with the next slice of the port (chunked prefill on the "
-              "flash kernel's q_offset, dense decode on kernel 3)")
+from repro_torch.serving.common import EngineFailure, PrefixCache, StepLog
 
 
 class PagedCache:
@@ -68,6 +75,32 @@ class PagedCache:
         return 2 * bk.numel() * bk.element_size()
 
 
+class PrefixBlocks:
+    """A prefix-cache entry's claim on pool blocks: per-layer block ids
+    [L, nb] covering ``length`` block-aligned tokens. The entry holds one
+    refcount per block; sharing with other entries or in-flight requests
+    is a refcount bump, never a copy."""
+
+    __slots__ = ("ids", "length")
+
+    def __init__(self, ids: np.ndarray, length: int):
+        self.ids = ids
+        self.length = int(length)
+
+
+def _grow_cache(cache, capacity: int):
+    """A trimmed dense prefix entry zero-padded back to ``capacity``. Always
+    a fresh tensor: the resumed chunked prefill writes into it in place,
+    and the stored entry must stay as it is."""
+    out = dict(cache)
+    for kk in ("k", "v"):
+        c = cache[kk]
+        grown = c.new_zeros(c.shape[:2] + (capacity,) + c.shape[3:])
+        grown[:, :, :c.shape[2]] = c
+        out[kk] = grown
+    return out
+
+
 class Engine:
     """One model instance. Thread-unsafe by design (driven by Cluster)."""
 
@@ -81,12 +114,9 @@ class Engine:
                  paged: Optional[bool] = None,
                  pool_blocks: Optional[int] = None,
                  device: DeviceLike = None):
-        if paged is False or not T.supports_paged(cfg):
-            raise NotImplementedError(f"{cfg.name}: only the paged layout "
-                                      f"is ported; {NEXT_SLICE}")
-        if chunk_size:
-            raise NotImplementedError(f"chunk_size={chunk_size}: "
-                                      f"{NEXT_SLICE}")
+        why = T.unported(cfg)
+        if why is not None:
+            raise NotImplementedError(f"{cfg.name}: {why}")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on "
@@ -96,7 +126,7 @@ class Engine:
         self.params = params            # shared, never copied, by engines
         self.slots = slots
         self.capacity = capacity
-        self.chunk_size = 0
+        self.chunk_size = chunk_size
         self.healthy = True
         self.clock = 0.0
         self.step_times = StepLog(step_history)
@@ -116,21 +146,59 @@ class Engine:
         if self.impl == "kernel":
             _build.build_all()          # never inside a timed step
 
-        self.paged = True
-        self.prefix_cache = None
+        self.paged = True if paged is None else bool(paged)
         self.block_size = block_size
+        if chunk_size and self.paged and chunk_size % block_size:
+            raise ValueError(f"paged chunked prefill needs chunk_size "
+                             f"({chunk_size}) % block_size ({block_size}) "
+                             "== 0")
         self._free = list(range(slots))
         self.slot_req: Dict[int, Any] = {}
-        Lr = cfg.num_layers
-        self._nb_max = -(-capacity // block_size)
-        if pool_blocks is None:
-            # full decode occupancy + in-flight prefill + prefix headroom
-            pool_blocks = 1 + Lr * self._nb_max * (slots + 4)
-        self.pool = T.init_block_pool(cfg, pool_blocks, block_size,
+        if self.paged:
+            Lr = cfg.num_layers
+            self._nb_max = -(-capacity // block_size)
+            if pool_blocks is None:
+                # full decode occupancy + in-flight prefill + prefix headroom
+                pool_blocks = 1 + Lr * self._nb_max * (slots + 4)
+            self.pool = T.init_block_pool(cfg, pool_blocks, block_size,
+                                          device=self.device)
+            self._alloc = BlockAllocator(pool_blocks)
+            self._tables = np.zeros((Lr, slots, self._nb_max), np.int32)
+            self._pos = np.zeros((slots,), np.int32)
+            self.cache = None
+            self.prefix_cache = (
+                PrefixCache(chunk_size, on_evict=self._release_entry)
+                if chunk_size else None)
+        else:
+            self.prefix_cache = PrefixCache(chunk_size) if chunk_size else None
+            self.cache = T.init_cache(cfg, slots, capacity,
                                       device=self.device)
-        self._alloc = BlockAllocator(pool_blocks)
-        self._tables = np.zeros((Lr, slots, self._nb_max), np.int32)
-        self._pos = np.zeros((slots,), np.int32)
+        self._warm_up()
+
+    @torch.inference_mode()
+    def _warm_up(self):
+        """One untimed decode step over the empty batch, so the process's
+        first-call costs (lazy initialisation of the step's ops and
+        libraries) never land in a timed step. The straggler detector
+        compares engines' step times; in one process only the first engine
+        to step would pay those costs (the reference's engines each compile
+        their own jit, and so each pay their own). Every slot is inactive:
+        paged writes land in the trash block, dense writes in rows that
+        ``insert`` overwrites, and the dense positions are reset."""
+        toks = self._step_tokens({})
+        if self.paged:
+            T.decode_step_paged(
+                self.params, self.cfg, self.pool,
+                torch.zeros((self.cfg.num_layers, self.slots, 1),
+                            dtype=torch.int32, device=self.device),
+                torch.as_tensor(self._pos, device=self.device), toks,
+                impl=self.impl)
+        else:
+            T.decode_step(self.params, self.cfg, self.cache, toks,
+                          impl=self.impl)
+            self.cache["pos"].zero_()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ---- fault/straggler injection hooks (used by tests & demos) -------
 
@@ -150,7 +218,7 @@ class Engine:
         return {"engine_id": self.engine_id, "backend": self.backend,
                 "hardware": self.hardware, "slots": self.slots,
                 "capacity": self.capacity, "paged": self.paged,
-                "block_size": self.block_size,
+                "block_size": self.block_size if self.paged else 0,
                 "speed_factor": self.speed_factor,
                 "capacity_weight": self.capacity_weight,
                 "device": str(self.device), "impl": self.impl}
@@ -168,11 +236,26 @@ class Engine:
         if not self.healthy:
             raise EngineFailure(f"engine {self.engine_id} is down")
 
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks, np.int64),
+                               device=self.device)[None, :]
+
+    # ---- block-pool bookkeeping (paged) --------------------------------
+
+    def _release_entry(self, payload: PrefixBlocks):
+        """PrefixCache on_evict: drop the entry's refcounts (a block goes
+        back to the free list only when no other entry/request holds it)."""
+        self._alloc.free(payload.ids.ravel().tolist())
+
     def _reserve(self, n: int):
-        if not self._alloc.can_alloc(n):
-            raise BlockPoolExhausted(
-                f"engine {self.engine_id}: need {n} blocks, "
-                f"{self._alloc.num_free} free")
+        """Ensure n blocks are allocatable, reclaiming LRU prefix entries
+        under pressure (the paged analogue of cache-capacity eviction)."""
+        while not self._alloc.can_alloc(n):
+            if self.prefix_cache is None or not self.prefix_cache.pop_lru():
+                raise BlockPoolExhausted(
+                    f"engine {self.engine_id}: need {n} blocks, "
+                    f"{self._alloc.num_free} free and no prefix entries "
+                    f"left to evict")
 
     # ---- prefill role ---------------------------------------------------
 
@@ -196,22 +279,131 @@ class Engine:
                                      *row.shape[2:])
         return logits, blocks
 
+    def _first_token(self, logits) -> int:
+        return int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+
     @torch.inference_mode()
     def prefill(self, prompt: np.ndarray) -> Tuple[int, Any]:
-        """Full prefill of one prompt; returns (first_token, payload)."""
+        """Full prefill of one prompt; returns (first_token, payload): a
+        ``PagedCache`` (paged) or a capacity-wide B=1 dict cache (dense)."""
         self._check()
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(np.asarray(prompt, np.int64),
-                                 device=self.device)[None, :]
-        logits, blocks = self._prefill_payload(tokens)
-        tok = int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+        tokens = self._tokens(prompt)
+        if self.paged:
+            logits, blocks = self._prefill_payload(tokens)
+            payload = PagedCache(blocks, len(prompt))
+        else:
+            logits, payload = T.prefill_full(
+                self.params, self.cfg, {"tokens": tokens},
+                capacity=self.capacity, impl=self.impl)
+        tok = self._first_token(logits)
         self.prefill_s += self._tick(t0)
         self.prefills += 1
-        return tok, PagedCache(blocks, len(prompt))
+        return tok, payload
 
+    @torch.inference_mode()
     def prefill_chunked(self, prompt: np.ndarray, chunk: int,
                         on_chunk=None) -> Tuple[int, Any]:
-        raise NotImplementedError(f"prefill_chunked: {NEXT_SLICE}")
+        """Sarathi-style chunked prefill (the executable piggyback path);
+        ``on_chunk(i, n)`` fires once per chunk after the whole prefill has
+        been timed, as in the reference, so a co-located engine's decode
+        rounds follow the prefill tick on the clock. Reuses the longest
+        cached prompt prefix when a PrefixCache is attached."""
+        self._check()
+        if self.paged:
+            tok, payload, n_chunks = self._prefill_chunked_paged(prompt,
+                                                                 chunk)
+        else:
+            tok, payload, n_chunks = self._prefill_chunked_dense(prompt,
+                                                                 chunk)
+        if on_chunk:
+            for i in range(n_chunks):
+                on_chunk(i, max(n_chunks, 1))
+        return tok, payload
+
+    def _padded(self, prompt: np.ndarray, chunk: int) -> np.ndarray:
+        toks = np.pad(prompt, (0, (-len(prompt)) % chunk), constant_values=0)
+        if len(toks) > self.capacity:
+            raise ValueError(f"engine {self.engine_id}: prompt of "
+                             f"{len(prompt)} tokens pads to {len(toks)} "
+                             f"(chunks of {chunk}), over the capacity "
+                             f"{self.capacity}")
+        return toks
+
+    def _prefill_chunked_dense(self, prompt, chunk):
+        S = len(prompt)
+        toks = self._padded(prompt, chunk)
+        start, base = 0, None
+        if self.prefix_cache is not None:
+            base, start = self.prefix_cache.lookup(prompt)
+        t0 = time.perf_counter()
+        logits, cache = T.prefill_chunked(
+            self.params, self.cfg, {"tokens": self._tokens(toks)}, chunk,
+            capacity=self.capacity, impl=self.impl,
+            cache=None if base is None else _grow_cache(base, self.capacity),
+            start=start)
+        tok = self._first_token(logits)
+        self.prefill_s += self._tick(t0)
+        self.prefills += 1
+        if self.prefix_cache is not None:
+            # store only the chunk-aligned true prompt prefix (never pad
+            # KV), as a copy: the entry must not pin the capacity-wide cache
+            n = (S // chunk) * chunk
+            if n > 0:
+                entry = {kk: cache[kk][:, :, :n].clone() for kk in ("k", "v")}
+                entry["pos"] = torch.full_like(cache["pos"], n)
+                self.prefix_cache.insert(prompt, entry)
+        return tok, cache, (len(toks) - start) // chunk
+
+    def _prefill_chunked_paged(self, prompt, chunk):
+        """Append chunk KV straight into this request's blocks (no dense
+        B=1 cache), share prefix blocks through the refcounted
+        PrefixCache, gather only the request's blocks as the payload."""
+        Bs = self.block_size
+        Lr = self.cfg.num_layers
+        if chunk % Bs:
+            raise ValueError(f"chunk {chunk} is not block-aligned ({Bs})")
+        S = len(prompt)
+        toks = self._padded(prompt, chunk)
+        Sp = len(toks)
+        start, entry = 0, None
+        if self.prefix_cache is not None:
+            entry, start = self.prefix_cache.lookup(prompt)
+        nb_total = Sp // Bs
+        nb_prefix = start // Bs
+        tbl = np.zeros((Lr, nb_total), np.int32)
+        self._reserve(Lr * (nb_total - nb_prefix))
+        if entry is not None:
+            # a hit takes references on the entry's blocks and allocates
+            # only the suffix
+            tbl[:, :nb_prefix] = entry.ids[:, :nb_prefix]
+            self._alloc.ref(tbl[:, :nb_prefix].ravel().tolist())
+        fresh = self._alloc.alloc(Lr * (nb_total - nb_prefix))
+        tbl[:, nb_prefix:] = np.asarray(fresh, np.int32).reshape(
+            Lr, nb_total - nb_prefix)
+        t0 = time.perf_counter()
+        tbl_t = torch.as_tensor(tbl, device=self.device)
+        logits, self.pool = T.prefill_chunked_paged(
+            self.params, self.cfg, {"tokens": self._tokens(toks)}, chunk,
+            self.pool, tbl_t, start=start, impl=self.impl)
+        # the payload stays on the device (the reference copies it to
+        # host numpy); a gather is a copy, so the pool blocks are free to go
+        payload = PagedCache(T.gather_blocks(self.pool, tbl_t), Sp)
+        tok = self._first_token(logits)
+        self.prefill_s += self._tick(t0)
+        self.prefills += 1
+        # the prefix entry keeps the chunk-aligned true prefix; pad blocks
+        # go straight back to the pool. The request's refcounts move to
+        # the entry.
+        n = (S // chunk) * chunk
+        nbk = n // Bs
+        if self.prefix_cache is not None and nbk > 0:
+            if nb_total > nbk:
+                self._alloc.free(tbl[:, nbk:].ravel().tolist())
+            self.prefix_cache.insert(prompt, PrefixBlocks(tbl[:, :nbk], n))
+        else:
+            self._alloc.free(tbl.ravel().tolist())
+        return tok, payload, (Sp - start) // chunk
 
     # ---- decode role ----------------------------------------------------
 
@@ -223,51 +415,90 @@ class Engine:
         return len(self.slot_req)
 
     @torch.inference_mode()
-    def insert(self, req, payload: PagedCache) -> int:
-        """KV handoff: place a prefilled request into a free slot, scattering
-        only the request's blocks (O(request), not O(capacity))."""
+    def insert(self, req, payload) -> int:
+        """KV handoff: place a prefilled request into a free slot. Paged
+        engines scatter only the request's blocks (O(request), not
+        O(capacity)); dense engines copy a capacity-wide row."""
         self._check()
-        if not isinstance(payload, PagedCache):
-            raise TypeError(f"paged engine got a {type(payload).__name__} "
-                            "handoff payload")
+        if self.paged and not isinstance(payload, PagedCache):
+            raise TypeError("paged engine got a dense handoff payload; "
+                            "mixed-layout fleets are unsupported")
+        if not self.paged and isinstance(payload, PagedCache):
+            raise TypeError("dense engine got a paged handoff payload; "
+                            "mixed-layout fleets are unsupported")
         slot = self._free.pop()
-        nbk = payload.blocks["k"].shape[1]
-        Lr = self.cfg.num_layers
-        try:
-            self._reserve(Lr * nbk)
-            ids = np.asarray(self._alloc.alloc(Lr * nbk),
-                             np.int32).reshape(Lr, nbk)
-        except BlockPoolExhausted:
-            self._free.append(slot)
-            raise
-        T.scatter_blocks(self.pool, torch.as_tensor(ids, device=self.device),
-                         payload.blocks)
-        self._tables[:, slot, :] = 0
-        self._tables[:, slot, :nbk] = ids
-        self._pos[slot] = payload.length
+        if self.paged:
+            nbk = payload.blocks["k"].shape[1]
+            Lr = self.cfg.num_layers
+            try:
+                self._reserve(Lr * nbk)
+                ids = np.asarray(self._alloc.alloc(Lr * nbk),
+                                 np.int32).reshape(Lr, nbk)
+            except BlockPoolExhausted:
+                self._free.append(slot)
+                raise
+            T.scatter_blocks(self.pool,
+                             torch.as_tensor(ids, device=self.device),
+                             payload.blocks)
+            self._tables[:, slot, :] = 0
+            self._tables[:, slot, :nbk] = ids
+            self._pos[slot] = payload.length
+        else:
+            self._insert_dense(slot, payload)
         self.slot_req[slot] = req
         req.slot = slot
         req.engine_id = self.engine_id
         return slot
 
+    def _insert_dense(self, slot: int, src) -> None:
+        """Copy a B=1 cache into decode slot ``slot``: zero-padded or cut to
+        this engine's capacity, in place."""
+        C = self.capacity
+        for kk in ("k", "v"):
+            row = src[kk][:, 0, :C]
+            dst = self.cache[kk][:, slot]
+            dst[:, :row.shape[1]] = row.to(device=dst.device,
+                                           dtype=dst.dtype)
+            dst[:, row.shape[1]:] = 0
+        self.cache["pos"][slot] = src["pos"][0]
+
     def evict(self, slot: int):
-        """Free a slot: each of the request's blocks is one refcount
-        decrement — no tensor traffic at all."""
+        """Free a slot. Paged: each of the request's blocks is one
+        refcount decrement — no tensor traffic at all."""
         req = self.slot_req.pop(slot, None)
         if req is not None:
             req.slot = None
-        row = self._tables[:, slot, :]
-        live = row[row != 0]
-        if live.size:
-            self._alloc.free(live.tolist())
-        self._tables[:, slot, :] = 0
-        self._pos[slot] = 0
+        if self.paged:
+            row = self._tables[:, slot, :]
+            live = row[row != 0]
+            if live.size:
+                self._alloc.free(live.tolist())
+            self._tables[:, slot, :] = 0
+            self._pos[slot] = 0
         self._free.append(slot)
+
+    def _step_tokens(self, tokens_by_slot: Dict[int, int]) -> torch.Tensor:
+        toks = np.zeros((self.slots,), np.int64)
+        for s, t in tokens_by_slot.items():
+            toks[s] = t
+        return torch.as_tensor(toks, device=self.device)
 
     @torch.inference_mode()
     def decode_step(self, tokens_by_slot: Dict[int, int]) -> Dict[int, int]:
         """One token for every active slot. Returns slot -> next token."""
         self._check()
+        if self.paged:
+            return self._decode_step_paged(tokens_by_slot)
+        t0 = time.perf_counter()
+        logits, self.cache = T.decode_step(
+            self.params, self.cfg, self.cache,
+            self._step_tokens(tokens_by_slot), impl=self.impl)
+        nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1).tolist()
+        self.decode_s += self._tick(t0)
+        self.decode_steps += 1
+        return {s: int(nxt[s]) for s in tokens_by_slot}
+
+    def _decode_step_paged(self, tokens_by_slot: Dict[int, int]):
         Bs = self.block_size
         Lr = self.cfg.num_layers
         # grow: a slot whose next write crosses a block boundary gets a
@@ -285,16 +516,13 @@ class Engine:
             nb *= 2
         nb = min(nb, self._nb_max)
         t0 = time.perf_counter()
-        toks = np.zeros((self.slots,), np.int64)
-        for s, t in tokens_by_slot.items():
-            toks[s] = t
         dev = self.device
         tables = torch.as_tensor(np.ascontiguousarray(self._tables[:, :, :nb]),
                                  device=dev)
         logits, self.pool, _ = T.decode_step_paged(
             self.params, self.cfg, self.pool, tables,
             torch.as_tensor(self._pos, device=dev),
-            torch.as_tensor(toks, device=dev), impl=self.impl)
+            self._step_tokens(tokens_by_slot), impl=self.impl)
         nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1).tolist()
         for s in tokens_by_slot:
             self._pos[s] += 1

@@ -17,9 +17,9 @@ scenarios:
 ``cluster.Cluster`` drives all three from one virtual-time event loop,
 fed by a ``repro_torch.workloads`` scenario through ``Cluster.serve``.
 
-This is the port's copy of ``repro.serving.policies`` with the policies
-that disaggregated whole-prompt prefill uses. The prefix-affinity and
-chunked-piggyback schedulers need chunked prefill and come with that slice.
+This is the port's copy of ``repro.serving.policies``, every policy
+included; ``split_pool`` is copied in from the reference's
+``core.rate_matching``.
 """
 from __future__ import annotations
 
@@ -82,6 +82,78 @@ class PriorityScheduler(FCFSScheduler):
                      if r.ftl_target_s is not None else float("inf"))
             return (-r.priority, slack, r.arrival_t, r.rid)
         return min(ready, key=key)
+
+
+class PrefixAffinityScheduler:
+    """Routes requests sharing prompt prefixes to the engine already holding
+    their prefix in its ``PrefixCache`` (Mooncake/SGLang-style locality), and
+    prefills in chunks so the cache is actually consulted/populated.
+
+    An engine prefers the ready request with the longest cached common prefix
+    *on that engine*; with no hit anywhere it falls back to FCFS, which
+    naturally shards distinct prefix families across the pool."""
+
+    def __init__(self, chunk: int = 8):
+        self.chunk = chunk
+        self._memo = {}     # (engine_id, rid, cache_version) -> hit length
+
+    def on_episode(self, cluster):
+        """New serve() episode: rids restart, so per-request memos from the
+        previous episode must not alias onto new requests."""
+        self._memo.clear()
+
+    def _hit_len(self, engine, req):
+        """match_len is an O(entries x isl) scan; memoize per (engine,
+        request, cache version) so a scheduling round probes each live pair
+        at most once across all select() calls."""
+        pc = engine.prefix_cache
+        if pc is None:
+            return 0
+        key = (engine.engine_id, req.rid, pc.version)
+        n = self._memo.get(key)
+        if n is None:
+            if len(self._memo) > 1 << 16:
+                self._memo.clear()
+            n = pc.match_len(req.prompt)
+            self._memo[key] = n
+        return n
+
+    def select(self, cluster, engine):
+        ready = cluster.ready_requests()
+        if not ready:
+            return None
+        hits = {r.rid: self._hit_len(engine, r) for r in ready}
+        best = max(ready, key=lambda r: (hits[r.rid], -r.arrival_t))
+        if hits[best.rid] > 0:
+            return best
+        # no affinity for this engine: leave requests whose prefix lives on a
+        # *different* engine for that engine, take the oldest unaffiliated one
+        others = [e for e in cluster.prefill_capable_healthy()
+                  if e is not engine and e.healthy
+                  and e.prefix_cache is not None]
+        for r in ready:
+            if not any(self._hit_len(e, r) > 0 for e in others):
+                return r
+        return ready[0]
+
+    def run_prefill(self, cluster, engine, req):
+        if engine.prefix_cache is None:     # engine built without chunking
+            return engine.prefill(req.prompt)
+        return engine.prefill_chunked(req.prompt, self.chunk)
+
+
+class ChunkedPiggybackScheduler(FCFSScheduler):
+    """Sarathi-style chunked prefill with decode piggybacked between chunks —
+    the co-located orchestrator's policy, now expressible on any cluster."""
+
+    def __init__(self, chunk: int):
+        assert chunk > 0
+        self.chunk = chunk
+
+    def run_prefill(self, cluster, engine, req):
+        return engine.prefill_chunked(
+            req.prompt, self.chunk,
+            on_chunk=lambda i, n: cluster.decode_round(engine))
 
 
 # --------------------------------------------------------------------------
@@ -282,6 +354,7 @@ class StaticSplitRateMatcher:
 
 __all__ = [
     "SchedulerPolicy", "FCFSScheduler", "PriorityScheduler",
+    "PrefixAffinityScheduler", "ChunkedPiggybackScheduler",
     "Router", "FirstFitRouter", "RoundRobinRouter", "LeastLoadedRouter",
     "KVLocalityRouter",
     "RateMatcher", "ElasticPolicy", "StaticSplitRateMatcher", "split_pool",

@@ -1,6 +1,6 @@
-"""Workload API for ``Cluster.serve()``: the port's copy of the open-loop
-half of ``repro.workloads`` (arrival processes x shape samplers). Sessions
-and trace replay come with a later slice."""
+"""Workload API for ``Cluster.serve()``: the port's copy of
+``repro.workloads`` — open-loop arrival processes x shape samplers, and
+closed-loop multi-turn sessions. Trace replay comes with a later slice."""
 from repro_torch.workloads.arrivals import (ArrivalProcess, Burst, Diurnal,
                                             Merged, PiecewiseRate, Poisson)
 from repro_torch.workloads.base import (BATCH, INTERACTIVE, STANDARD,
@@ -8,6 +8,7 @@ from repro_torch.workloads.base import (BATCH, INTERACTIVE, STANDARD,
                                         Superpose, Workload, WorkloadSummary,
                                         materialize)
 from repro_torch.workloads.generators import OpenLoopWorkload
+from repro_torch.workloads.sessions import SessionWorkload
 from repro_torch.workloads.shapes import (PATTERN_SHAPES, FixedShape,
                                           LognormalShape, MixtureShape,
                                           ShapeSampler)
@@ -20,5 +21,5 @@ __all__ = [
     "Merged",
     "ShapeSampler", "FixedShape", "LognormalShape", "MixtureShape",
     "PATTERN_SHAPES",
-    "OpenLoopWorkload",
+    "OpenLoopWorkload", "SessionWorkload",
 ]

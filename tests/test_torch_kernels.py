@@ -17,11 +17,14 @@ import torch
 from repro.kernels.decode_attention import ops as jax_dec_ops
 from repro.kernels.decode_attention.paged_decode import \
     paged_decode_attention_kernel
-from repro.kernels.decode_attention.ref import decode_attention_paged_ref
+from repro.kernels.decode_attention.ref import (decode_attention_paged_ref,
+                                                decode_attention_ref)
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
-from repro_torch.kernels.decode_attention.ref import paged_decode_partials_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref as port_decode_attention_ref,
+    paged_decode_partials_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -75,6 +78,78 @@ def test_flash_attention_ref_keeps_dtype_and_masks_empty_rows():
     # row 0 sits at position -1: every key lies in its causal future
     s = flash_attention_ref(q, k, k, causal=True, q_offset=-1)
     assert torch.isfinite(s).all() and float(s[0, 0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,Smax,H,Hkv,dh,bk", [   # tests/test_kernels.py:44
+    (2, 256, 8, 2, 64, 64),
+    (3, 512, 4, 4, 128, 128),
+    (2, 128, 16, 1, 64, 64),
+    (1, 1024, 8, 8, 64, 256),
+])
+def test_decode_attention_matches_jax(B, Smax, H, Hkv, dh, bk):
+    rng = np.random.default_rng(21)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    lens = rng.integers(1, Smax + 1, B).astype(np.int32)
+    n0 = dec_ops.decode_attention.launches
+    out = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(lens))
+    assert dec_ops.decode_attention.launches == n0     # CPU: plain only
+    assert out.shape == (B, H, dh) and out.dtype == torch.float32
+    pallas = jax_dec_ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        block_kv=bk, interpret=True)
+    ref = decode_attention_ref(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), jnp.asarray(lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+def test_decode_attention_engine_shape_and_edge_lengths():
+    """qwen2.5-3b's heads at the dense engine's capacity (584, no multiple
+    of a split), lengths 1 and Smax, and past Smax (all rows live), against
+    the JAX oracle; a row of length 0 gives 0, as the kernel does."""
+    rng = np.random.default_rng(23)
+    B, Smax, H, Hkv, dh = 4, 584, 16, 2, 128
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    lens = np.array([1, 584, 300, 700], np.int32)
+    out = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(lens))
+    ref = decode_attention_ref(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), jnp.asarray(lens))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+    zero = port_decode_attention_ref(_t(q), _t(kc), _t(vc),
+                                     _t(np.zeros(B, np.int32)))
+    assert float(zero.abs().max()) == 0.0
+    assert port_decode_attention_ref(_t(q).bfloat16(), _t(kc).bfloat16(),
+                                     _t(vc).bfloat16(), _t(lens)).dtype == \
+        torch.bfloat16
+
+
+def test_decode_attention_length_mask_exact():
+    """Rows past a length must not leak (``tests/test_kernels.py:64``):
+    poisoning them changes nothing, here and in the JAX kernel."""
+    rng = np.random.default_rng(25)
+    B, Smax, H, Hkv, dh = 2, 128, 4, 2, 64
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    lens = np.array([40, 100], np.int32)
+    out1 = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(lens))
+    kc2, vc2 = kc.copy(), vc.copy()
+    kc2[0, 40:], vc2[0, 40:] = 99.0, -99.0
+    kc2[1, 100:], vc2[1, 100:] = 1e4, -1e4
+    out2 = dec_ops.decode_attention(_t(q), _t(kc2), _t(vc2), _t(lens))
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+    jout = jax_dec_ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc2), jnp.asarray(vc2),
+        jnp.asarray(lens), block_kv=64, interpret=True)
+    np.testing.assert_allclose(out2.numpy(), np.asarray(jout), atol=TOL,
+                               rtol=TOL)
 
 
 def _paged_case(rng, B, N, Bs, Hkv, dh, lengths):

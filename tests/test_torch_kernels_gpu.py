@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention_paged, decode_attention_paged_plain)
+    decode_attention, decode_attention_paged, decode_attention_paged_plain)
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -42,6 +43,10 @@ def _bf16(rng, shape, dev):
     (1, 509, 509, 16, 2, True, 0),      # ragged: no multiple of the tile
     (1, 1, 1, 16, 2, True, 0),
     (1, 70, 300, 16, 2, True, 230),     # ragged offset chunk
+    (1, 16, 64, 16, 2, True, 48),       # chunked prefill: Sq < 64, and
+    (1, 16, 464, 16, 2, True, 448),     # q_offset not a multiple of 64
+    (1, 64, 112, 16, 2, True, 48),
+    (1, 64, 512, 16, 2, True, 448),
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, causal, off):
     rng = np.random.default_rng(3)
@@ -111,6 +116,44 @@ def test_paged_kernel_garbage_block_immunity(cuda):
     assert torch.equal(out1, out2)
 
 
+def _dense_case(rng, B, Smax, H, Hkv, lengths, dev):
+    return (_bf16(rng, (B, H, 128), dev), _bf16(rng, (B, Smax, Hkv, 128), dev),
+            _bf16(rng, (B, Smax, Hkv, 128), dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("B,Smax,H,Hkv,lengths", [
+    (8, 584, 16, 2, (1, 584, 100, 128, 129, 300, 512, 9)),   # engine shape
+    (2, 256, 8, 2, (37, 256)),
+    (3, 512, 4, 4, (64, 1, 90)),
+    (2, 128, 16, 1, (0, 700)),          # empty row; length past Smax
+])
+def test_dense_kernel_matches_plain(cuda, B, Smax, H, Hkv, lengths):
+    rng = np.random.default_rng(17)
+    q, k, v, lens = _dense_case(rng, B, Smax, H, Hkv, lengths, cuda)
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_dense_kernel_length_mask_exact(cuda):
+    """Rows at and past a length are never read: poisoning them with
+    +-1e4 leaves the output bit-identical."""
+    rng = np.random.default_rng(19)
+    lengths = (1, 584, 40, 129, 300, 512, 9, 250)
+    q, k, v, lens = _dense_case(rng, 8, 584, 16, 2, lengths, cuda)
+    out1 = decode_attention(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
+    out2 = decode_attention(q, k2, v2, lens)
+    assert torch.equal(out1, out2)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """On CUDA tensors the wrappers launch or raise: no plain fallback."""
     q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
@@ -119,3 +162,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     q32 = torch.zeros((1, 8, 4, 128), device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q32, q32[:, :, :2], q32[:, :, :2])  # fp32
+    kc = torch.zeros((1, 16, 2, 128), device=cuda, dtype=torch.bfloat16)
+    lens = torch.ones((1,), device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):                          # fp32 q
+        decode_attention(torch.zeros((1, 4, 128), device=cuda), kc, kc, lens)
+    with pytest.raises(ValueError):                          # int64 lengths
+        decode_attention(kc[:, 0, :, :].repeat(1, 2, 1), kc, kc, lens.long())

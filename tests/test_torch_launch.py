@@ -85,6 +85,47 @@ def test_launcher_serves_smoke_config_on_cpu():
     assert rec["hardware"]["decode"] == {"gpu-h100": 2}
 
 
+def _serve(*args):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", *args],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout)
+
+
+def test_launcher_serves_coloc_on_cpu():
+    """One mixed pool, chunked prefill with decode piggybacked between
+    chunks, kv-locality routing: nothing crosses engines."""
+    rec = _serve("--mode", "coloc", "--requests", "4", "--isl", "32",
+                 "--osl", "6", "--piggyback-chunk", "8")
+    assert rec["completed"] == 4 and rec["mode"] == "coloc"
+    assert rec["scheduler"] == "chunked-piggyback:8"
+    assert rec["router"] == "kv-locality" and rec["rate_matcher"] == "none"
+    assert rec["transfers"] == 0 and rec["prefills"] == 4
+    assert rec["hardware"]["mixed"] == {"gpu-h100": 3}
+    assert rec["capacity"] == 32 + 6 + 8        # 32 is whole chunks
+
+
+def test_launcher_serves_prefix_affinity_sessions_on_cpu():
+    """Multi-turn sessions with prefix-affine chunked prefill: every turn
+    completes, later turns hit the prefix cache, and the capacity holds a
+    turn's chunk pad."""
+    rec = _serve("--mode", "coloc", "--scheduler", "prefix-affinity",
+                 "--workload", "sessions", "--requests", "2", "--turns", "2",
+                 "--isl", "32", "--osl", "4", "--piggyback-chunk", "8")
+    assert rec["completed"] == 4 and rec["workload"] == "sessions"
+    assert rec["scheduler"] == "prefix-affinity" and rec["prefix_hits"] > 0
+    assert rec["capacity"] == 16 + 2 * (16 + 4) + 8 + 7
+
+
+def test_launcher_refuses_prefix_affinity_without_chunks():
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--scheduler",
+                    "prefix-affinity", "--piggyback-chunk", "0"])
+
+
 def test_launcher_main_in_process(capsys):
     from repro_torch.launch import serve
     rec = serve.main(["--smoke", "--device", "cpu", "--requests", "3",

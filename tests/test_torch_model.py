@@ -234,6 +234,143 @@ def test_decode_step_paged_matches_reference(full, jax_impl, request):
                    f"pool {kk} ({impl})")
 
 
+# ---------------------------------------------------------------------------
+# Dense decode, chunked prefill (dense and paged)
+
+
+def _torch_cache(cache):
+    return {k: torch.from_numpy(np.array(v)) for k, v in cache.items()}
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_decode_step_matches_reference(full):
+    """Dense decode over several steps from a JAX prefill cache, with
+    per-slot positions: one live slot at the prompt's end, one earlier
+    (stale KV past it is masked, then overwritten), one past the capacity
+    (writes clamp to C-1, every column valid)."""
+    jcfg, cfg = _configs(full)
+    jp, tp = _params(full)
+    S, C, steps = (13, 24, 4) if not full else (9, 16, 3)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (3, S))
+    jl, jc = JT.prefill_full(jp, jcfg, {"tokens": jnp.asarray(tokens)},
+                             capacity=C)
+    jc = dict(jc, pos=jnp.asarray([S, 5, C + 2], jnp.int32))
+    toks = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    tcaches = {impl: _torch_cache(jc) for impl in ("kernel", "plain")}
+    for step in range(steps):
+        jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(toks))
+        for impl, tc in tcaches.items():
+            k_before = tc["k"]
+            tl, tcaches[impl] = T.decode_step(tp, cfg, tc,
+                                              torch.from_numpy(toks),
+                                              impl=impl)
+            assert tcaches[impl]["k"] is k_before   # updated in place
+            assert tl.dtype == torch.float32
+            _close(tl, jl, f"step {step} logits ({impl})")
+            assert _np(tcaches[impl]["pos"]).tolist() == \
+                _np(jc["pos"]).tolist()
+        toks = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for impl, tc in tcaches.items():
+        for kk in ("k", "v"):
+            _close(tc[kk], jc[kk], f"cache {kk} ({impl})")
+
+
+def test_init_cache_matches_reference():
+    jcfg, cfg = _configs(False)
+    jc = JT.init_cache(jcfg, 3, 20)
+    tc = T.init_cache(cfg, 3, 20, device="cpu")
+    assert set(tc) == set(jc)
+    for key, leaf in jc.items():
+        assert tuple(tc[key].shape) == leaf.shape, key
+        assert float(tc[key].abs().max()) == 0.0
+    assert tc["pos"].dtype == torch.int32 and tc["k"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_prefill_chunked_matches_reference(full):
+    """Fresh chunked prefill, and a resume from a cached prefix
+    (``cache=``/``start=``), against the reference's; the resumed logits
+    also match the fresh ones."""
+    jcfg, cfg = _configs(full)
+    jp, tp = _params(full)
+    S, chunk, C, start = (24, 8, 32, 16) if not full else (32, 16, 48, 16)
+    tokens = np.random.default_rng(6).integers(0, cfg.vocab_size, (1, S))
+    jl, jc = JT.prefill_chunked(jp, jcfg, {"tokens": jnp.asarray(tokens)},
+                                chunk, capacity=C)
+    _, jpre = JT.prefill_chunked(
+        jp, jcfg, {"tokens": jnp.asarray(tokens[:, :start])}, chunk,
+        capacity=C)
+    jlr, jcr = JT.prefill_chunked(jp, jcfg, {"tokens": jnp.asarray(tokens)},
+                                  chunk, capacity=C, cache=jpre, start=start)
+    for impl in ("kernel", "plain"):
+        tl, tc = T.prefill_chunked(tp, cfg, {"tokens": torch.from_numpy(
+            tokens)}, chunk, capacity=C, impl=impl)
+        _close(tl, jl, f"fresh logits ({impl})")
+        for kk in ("k", "v"):
+            _close(tc[kk], jc[kk], f"fresh cache {kk} ({impl})")
+        assert _np(tc["pos"]).tolist() == _np(jc["pos"]).tolist() == [S]
+        _, tpre = T.prefill_chunked(tp, cfg, {"tokens": torch.from_numpy(
+            tokens[:, :start])}, chunk, capacity=C, impl=impl)
+        tlr, tcr = T.prefill_chunked(tp, cfg, {"tokens": torch.from_numpy(
+            tokens)}, chunk, capacity=C, impl=impl, cache=tpre, start=start)
+        _close(tlr, jlr, f"resumed logits ({impl})")
+        _close(tlr, jl, f"resumed vs fresh logits ({impl})")
+        for kk in ("k", "v"):
+            _close(tcr[kk], jcr[kk], f"resumed cache {kk} ({impl})")
+    with pytest.raises(ValueError):             # not in whole chunks
+        T.prefill_chunked(tp, cfg, {"tokens": torch.from_numpy(
+            tokens[:, :S - 1])}, chunk, capacity=C)
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+def test_prefill_chunked_paged_matches_reference(full, jax_impl, request):
+    """Chunked prefill straight into shuffled pool blocks, fresh and
+    resumed after a prefix (``start=``), against the reference's ``xla``
+    and ``pallas`` (interpret) branches; the blocks the chunks wrote hold
+    the same KV."""
+    if jax_impl == "pallas":
+        request.getfixturevalue("pallas_interpret")
+    jcfg, cfg = _configs(full)
+    jp, tp = _params(full)
+    S, chunk = (24, 8) if not full else (48, 16)
+    rng = np.random.default_rng(8)
+    tokens = rng.integers(0, cfg.vocab_size, (1, S))
+    Lr, nbk = cfg.num_layers, S // Bs
+    N = 1 + Lr * nbk + 5
+    tables = rng.permutation(np.arange(1, N))[:Lr * nbk].astype(
+        np.int32).reshape(Lr, nbk)
+    pool = {kk: np.zeros((N, Bs, cfg.padded_kv_heads, cfg.dh), np.float32)
+            for kk in ("k", "v")}
+    jl, jpool = JT.prefill_chunked_paged(
+        jp, jcfg, {"tokens": jnp.asarray(tokens)}, chunk,
+        {k: jnp.asarray(v) for k, v in pool.items()}, jnp.asarray(tables),
+        impl=jax_impl)
+    for impl in ("kernel", "plain"):
+        tpool = {k: torch.from_numpy(v.copy()) for k, v in pool.items()}
+        tl, out = T.prefill_chunked_paged(
+            tp, cfg, {"tokens": torch.from_numpy(tokens)}, chunk, tpool,
+            torch.from_numpy(tables), impl=impl)
+        assert out is tpool
+        _close(tl, jl, f"logits ({impl})")
+        for kk in ("k", "v"):
+            _close(tpool[kk][tables], np.asarray(jpool[kk])[tables],
+                   f"blocks {kk} ({impl})")
+        # resume: the prefix's blocks already hold its KV
+        start = chunk
+        rpool = {k: torch.from_numpy(v.copy()) for k, v in pool.items()}
+        T.prefill_chunked_paged(
+            tp, cfg, {"tokens": torch.from_numpy(tokens[:, :start])}, chunk,
+            rpool, torch.from_numpy(tables[:, :start // Bs]), impl=impl)
+        rl, _ = T.prefill_chunked_paged(
+            tp, cfg, {"tokens": torch.from_numpy(tokens)}, chunk, rpool,
+            torch.from_numpy(tables), start=start, impl=impl)
+        _close(rl, jl, f"resumed logits ({impl})")
+        for kk in ("k", "v"):
+            _close(rpool[kk][tables], np.asarray(jpool[kk])[tables],
+                   f"resumed blocks {kk} ({impl})")
+
+
 def test_gather_scatter_blocks_match_reference():
     rng = np.random.default_rng(4)
     pool = {kk: rng.standard_normal((9, Bs, 2, 4)).astype(np.float32)
@@ -267,3 +404,17 @@ def test_bf16_logits_are_float32():
     assert cache["k"].dtype == torch.bfloat16
     assert not T.supports_paged(cfg.replace(sliding_window=16))
     assert not T.supports_paged(cfg.replace(kv_quant=True))
+
+
+@pytest.mark.parametrize("change,slice_name", [
+    ({"kv_quant": True}, "kv-quant / sliding-window slice"),
+    ({"sliding_window": 16}, "kv-quant / sliding-window slice"),
+    ({"block": "rwkv"}, "RWKV-6 slice"),
+    ({"block": "hybrid"}, "hybrid slice"),
+])
+def test_unported_configs_name_their_slice(change, slice_name):
+    cfg = get_smoke_config("qwen2.5-3b").replace(**change)
+    assert slice_name in T.unported(cfg)
+    with pytest.raises(NotImplementedError, match=slice_name):
+        T.init_cache(cfg, 1, 8, device="cpu")
+    assert T.unported(get_smoke_config("qwen2.5-3b")) is None

@@ -1,8 +1,10 @@
 """The port's serving runtime vs the JAX package on the CPU: the same
-disaggregated ``Cluster.serve`` (1 prefill + 2 decode engines, paged KV
-handoff, continuous batching) over the same requests and the same float32
-weights gives every request the same greedy token stream; the block pools
-account for every block afterwards; the handoff payload is block-rounded.
+``Cluster.serve`` over the same requests and the same float32 weights
+gives every request the same greedy token stream — disaggregated (paged
+KV handoff, continuous batching, and the dense layout), co-located
+(chunked prefill with decode piggybacked between chunks) and
+prefix-affine over multi-turn sessions; the block pools account for every
+block afterwards; the handoff payloads have the reference's sizes.
 
 Equality of token streams is exact: greedy argmax over float32 logits that
 agree to ~1e-6 (``tests/test_torch_model.py``) and are nowhere near a tie
@@ -20,10 +22,16 @@ from repro.serving.cluster import Cluster as JCluster
 from repro.serving.elastic import ElasticConfig as JElasticConfig
 from repro.serving.elastic import ElasticRateMatcher as JElasticRateMatcher
 from repro.serving.engine import Engine as JEngine
+from repro.serving.policies import \
+    ChunkedPiggybackScheduler as JChunkedPiggybackScheduler
 from repro.serving.policies import ElasticPolicy as JElasticPolicy
+from repro.serving.policies import KVLocalityRouter as JKVLocalityRouter
+from repro.serving.policies import \
+    PrefixAffinityScheduler as JPrefixAffinityScheduler
 from repro.workloads import Burst as JBurst
 from repro.workloads import FixedShape as JFixedShape
 from repro.workloads import OpenLoopWorkload as JOpenLoopWorkload
+from repro.workloads import SessionWorkload as JSessionWorkload
 from repro.workloads import StaticWorkload as JStaticWorkload
 from repro.workloads import materialize as jmaterialize
 from repro_torch.configs import get_smoke_config
@@ -31,12 +39,17 @@ from repro_torch.convert import from_reference
 from repro_torch.core.hardware import get_chip
 from repro_torch.device import resolve_device
 from repro_torch.serving.backends import init_torch_params, make_engine
+from repro_torch.serving.blocks import BlockPoolExhausted
 from repro_torch.serving.cluster import Cluster, kv_bytes
 from repro_torch.serving.elastic import ElasticConfig, ElasticRateMatcher
-from repro_torch.serving.engine import Engine, PagedCache
-from repro_torch.serving.policies import ElasticPolicy
+from repro_torch.serving.engine import Engine, PagedCache, PrefixBlocks
+from repro_torch.serving.policies import (ChunkedPiggybackScheduler,
+                                          ElasticPolicy, KVLocalityRouter,
+                                          PrefixAffinityScheduler)
+from repro_torch.serving.request import Request
 from repro_torch.workloads import (Burst, FixedShape, OpenLoopWorkload,
-                                   StaticWorkload, materialize)
+                                   SessionWorkload, StaticWorkload,
+                                   materialize)
 
 ISL, OSL, N_REQ, SLOTS = 24, 6, 6, 2
 CAPACITY = ISL + OSL + 8
@@ -148,12 +161,22 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
     slow = make_engine("torch", 2, cfg, tp, chip=get_chip("v5e"),
                        device="cpu")
     assert slow.capacity_weight < 1.0           # measured on the reference
-    with pytest.raises(NotImplementedError, match="next slice"):
-        eng.prefill_chunked(np.arange(8), 8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Engine(3, cfg, tp, paged=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Engine(3, cfg, tp, chunk_size=16, device="cpu")
+    dense = make_engine("torch", 3, cfg, tp, paged=False, chunk_size=16,
+                        device="cpu")
+    assert not dense.paged and dense.prefix_cache is not None
+    assert dense.describe()["block_size"] == 0
+    with pytest.raises(ValueError, match="block_size"):
+        Engine(3, cfg, tp, chunk_size=12, device="cpu")
+    with pytest.raises(ValueError, match="capacity"):
+        eng.prefill_chunked(np.arange(250) % 100, 24)  # pads to 264 > 256
+    # what is still unported names the slice that brings it
+    for change, slice_name in (({"kv_quant": True}, "kv-quant"),
+                               ({"sliding_window": 8}, "sliding-window"),
+                               ({"block": "rwkv"}, "RWKV-6 slice")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            Engine(4, cfg.replace(**change), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="RWKV-6 slice"):
+        Engine(4, cfg.replace(block="rwkv"), tp, paged=False, device="cpu")
     eng.fail()
     with pytest.raises(Exception, match="down"):
         eng.prefill(np.arange(4))
@@ -171,3 +194,243 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
         make_engine("torch", 5, cfg, tp)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_torch_params(cfg, 0)
+
+
+# ---------------------------------------------------------------------------
+# Co-located, dense and prefix-affine serving
+
+CHUNK = 8
+
+
+def _streams(reqs):
+    return {r.rid: list(r.output) for r in reqs}
+
+
+def _free(engines):
+    return [e._alloc.num_free for e in engines if e.paged]
+
+
+def test_coloc_serve_token_streams_match_reference(weights):
+    """One mixed pool, chunked prefill with a decode round piggybacked
+    after every chunk, kv-locality routing: the same streams as the JAX
+    runtime, no KV transfer, no leaked block."""
+    jcfg, cfg, jp, tp = weights
+    jreqs, treqs = _requests(True, cfg.vocab_size), _requests(False,
+                                                              cfg.vocab_size)
+    jeng = [JEngine(i, jcfg, jp, slots=SLOTS, capacity=CAPACITY)
+            for i in (0, 1)]
+    jcl = JCluster({"mixed": jeng},
+                   scheduler=JChunkedPiggybackScheduler(CHUNK),
+                   router=JKVLocalityRouter())
+    jm = jcl.serve(JStaticWorkload(jreqs))
+    teng = [make_engine("torch", i, cfg, tp, slots=SLOTS, capacity=CAPACITY,
+                        device="cpu") for i in (0, 1)]
+    free0 = _free(teng)
+    tcl = Cluster({"mixed": teng}, scheduler=ChunkedPiggybackScheduler(CHUNK),
+                  router=KVLocalityRouter())
+    tm = tcl.serve(StaticWorkload(treqs))
+    assert jm["completed"] == tm["completed"] == N_REQ
+    assert _streams(treqs) == _streams(jreqs)
+    assert tcl.stats.transfers == jcl.stats.transfers == 0
+    assert _free(teng) == free0 and all(not e.slot_req for e in teng)
+    assert sum(e.prefills for e in teng) == N_REQ
+
+
+def test_coloc_streams_equal_disagg_streams(weights):
+    """Deployment shape must not change what gets generated
+    (``tests/test_serving.py:257``): a mixed pool with whole-prompt
+    prefill, and one with chunked piggyback prefill, give the disaggregated
+    cluster's streams."""
+    _, cfg, _, tp = weights
+    runs = {}
+    for name in ("disagg", "coloc", "coloc-chunked"):
+        reqs = _requests(False, cfg.vocab_size)
+        engs = [make_engine("torch", i, cfg, tp, slots=SLOTS,
+                            capacity=CAPACITY, device="cpu") for i in (0, 1)]
+        if name == "disagg":
+            cl = Cluster({"prefill": engs[:1], "decode": engs[1:]})
+        else:
+            cl = Cluster({"mixed": engs}, router=KVLocalityRouter(),
+                         **({"scheduler": ChunkedPiggybackScheduler(CHUNK)}
+                            if name == "coloc-chunked" else {}))
+        assert cl.serve(StaticWorkload(reqs))["completed"] == N_REQ
+        runs[name] = _streams(reqs)
+    assert runs["coloc"] == runs["disagg"] == runs["coloc-chunked"]
+
+
+def test_dense_layout_serve_matches_reference_and_paged(weights):
+    """Dense engines serve the JAX dense engines' streams, and (at a pow2
+    capacity, ``tests/test_paged.py:81``) the paged engines' streams; the
+    dense handoff payload is capacity-wide, as the reference's."""
+    jcfg, cfg, jp, tp = weights
+    cap = 64
+    jreqs = _requests(True, cfg.vocab_size)
+    jeng = [JEngine(i, jcfg, jp, slots=SLOTS, capacity=cap, paged=False)
+            for i in (0, 1)]
+    JCluster({"prefill": jeng[:1], "decode": jeng[1:]}).serve(
+        JStaticWorkload(jreqs))
+    runs = {}
+    for paged in (False, True):
+        reqs = _requests(False, cfg.vocab_size)
+        engs = [make_engine("torch", i, cfg, tp, slots=SLOTS, capacity=cap,
+                            paged=paged, device="cpu") for i in (0, 1)]
+        free0 = _free(engs)
+        cl = Cluster({"prefill": engs[:1], "decode": engs[1:]})
+        assert cl.serve(StaticWorkload(reqs))["completed"] == N_REQ
+        assert _free(engs) == free0             # no leaked blocks
+        runs[paged] = (_streams(reqs), cl.stats.transferred_bytes)
+    assert runs[False][0] == _streams(jreqs) == runs[True][0]
+    per_tok = 2 * cfg.num_layers * cfg.padded_kv_heads * cfg.dh * 4
+    assert runs[False][1] == N_REQ * cap * per_tok      # capacity-wide
+    assert runs[True][1] == N_REQ * ISL * per_tok       # block-rounded
+
+
+def _sessions(jax_side: bool, vocab: int):
+    kw = dict(vocab=vocab, seed=4, sessions=3, turns=2, families=1,
+              system_prefix_len=16, user_isl=(5, 12), osl=4,
+              think_time=0.01)
+    return JSessionWorkload(**kw) if jax_side else SessionWorkload(**kw)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_prefix_affinity_sessions_match_reference(weights, paged):
+    """Multi-turn sessions on a mixed pool with prefix-affinity and
+    chunked prefill: later turns and sibling sessions hit the prefix
+    cache, the streams equal the JAX runtime's (a hit resumes from the
+    same KV a fresh prefill computes), and clearing the caches returns
+    every block."""
+    jcfg, cfg, jp, tp = weights
+    jw, tw = _sessions(True, cfg.vocab_size), _sessions(False,
+                                                         cfg.vocab_size)
+    cap = tw.max_context() + 8 + CHUNK - 1
+    jeng = [JEngine(i, jcfg, jp, slots=SLOTS, capacity=cap,
+                    chunk_size=CHUNK, paged=paged) for i in (0, 1)]
+    jrec, trec = [], []
+    jw.on_complete = _recording(jw.on_complete, jrec)
+    tw.on_complete = _recording(tw.on_complete, trec)
+    JCluster({"mixed": jeng}, scheduler=JPrefixAffinityScheduler(CHUNK),
+             router=JKVLocalityRouter()).serve(jw)
+    teng = [make_engine("torch", i, cfg, tp, slots=SLOTS, capacity=cap,
+                        chunk_size=CHUNK, paged=paged, device="cpu")
+            for i in (0, 1)]
+    free0 = _free(teng)
+    tm = Cluster({"mixed": teng}, scheduler=PrefixAffinityScheduler(CHUNK),
+                 router=KVLocalityRouter()).serve(tw)
+    assert tm["completed"] == len(trec) == len(jrec) == 6
+    key = (lambda r: (r.session_id, r.turn))
+    assert {key(r): (r.prompt.tolist(), r.output) for r in trec} == \
+        {key(r): (r.prompt.tolist(), r.output) for r in jrec}
+    assert sum(e.prefix_cache.hits for e in teng) > 0
+    assert sum(e.prefix_cache.hits for e in jeng) > 0
+    for e in teng:
+        while e.prefix_cache.pop_lru():
+            pass
+    assert _free(teng) == free0 and all(not e.slot_req for e in teng)
+
+
+def _recording(on_complete, out):
+    def wrapped(req, now):
+        out.append(req)
+        on_complete(req, now)
+    return wrapped
+
+
+def test_prefix_blocks_shared_by_refcount(weights):
+    """A hit references the entry's blocks and allocates only the suffix;
+    two entries share their common blocks (refcount 2), never a copy."""
+    _, cfg, _, tp = weights
+    eng = Engine(0, cfg, tp, slots=2, capacity=64, chunk_size=8,
+                 device="cpu")
+    free0 = eng._alloc.num_free
+    rng = np.random.default_rng(1)
+    a = rng.integers(1, cfg.vocab_size, 24).astype(np.int32)
+    b = np.concatenate([a[:16], rng.integers(1, cfg.vocab_size, 8)
+                        .astype(np.int32)])
+    eng.prefill_chunked(a, 8)
+    eng.prefill_chunked(b, 8)                   # shares a's first 16 tokens
+    assert eng.prefix_cache.hits == 1 and len(eng.prefix_cache) == 2
+    Lr = cfg.num_layers
+    assert free0 - eng._alloc.num_free == Lr * 4     # 3 + 1 distinct/layer
+    shared = eng.prefix_cache.lookup(a)[0]
+    assert isinstance(shared, PrefixBlocks) and shared.length == 24
+    for blk in shared.ids[:, :2].ravel().tolist():
+        assert eng._alloc.refcount(blk) == 2
+    assert eng.prefix_cache.pop_lru()           # evicts a (LRU)
+    assert free0 - eng._alloc.num_free == Lr * 3
+    assert eng.prefix_cache.pop_lru()
+    assert eng._alloc.num_free == free0
+
+
+def test_prefix_entries_trimmed_to_true_length(weights):
+    """Entries store the chunk-aligned true prompt prefix, never pad KV,
+    on both layouts; the dense entry is a copy, not a view of the
+    capacity-wide cache; resuming from it reproduces the fresh token."""
+    _, cfg, _, tp = weights
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(1, cfg.vocab_size, 17).astype(np.int32)  # pads 24
+    dense = Engine(0, cfg, tp, slots=2, capacity=64, chunk_size=8,
+                   paged=False, device="cpu")
+    _, cache = dense.prefill_chunked(prompt, 8)
+    entry = next(iter(dense.prefix_cache._entries.values()))
+    assert entry["k"].shape[2] == 16 and int(entry["pos"][0]) == 16
+    assert entry["k"].untyped_storage().data_ptr() != \
+        cache["k"].untyped_storage().data_ptr()
+    assert int(cache["pos"][0]) == 24           # the padded prompt
+    paged = Engine(1, cfg, tp, slots=2, capacity=64, chunk_size=8,
+                   device="cpu")
+    free0 = paged._alloc.num_free
+    _, payload = paged.prefill_chunked(prompt, 8)
+    assert payload.length == 24 and payload.blocks["k"].shape[1] == 3
+    pentry = paged.prefix_cache.lookup(prompt)[0]
+    assert pentry.length == 16 and pentry.ids.shape == (cfg.num_layers, 2)
+    assert free0 - paged._alloc.num_free == cfg.num_layers * 2
+    follow = np.concatenate([prompt[:16], rng.integers(1, cfg.vocab_size, 9)
+                             .astype(np.int32)])
+    for layout in (False, True):
+        warm = Engine(2, cfg, tp, slots=2, capacity=64, chunk_size=8,
+                      paged=layout, device="cpu")
+        warm.prefill_chunked(prompt, 8)
+        tok_w, _ = warm.prefill_chunked(follow, 8)
+        assert warm.prefix_cache.hits == 1
+        # the stored entry survived the resume that wrote past it
+        again, _ = warm.prefill_chunked(follow, 8)
+        cold = Engine(3, cfg, tp, slots=2, capacity=64, paged=layout,
+                      device="cpu")
+        tok_c, _ = cold.prefill_chunked(follow, 8)
+        assert tok_w == tok_c == again, f"paged={layout}"
+
+
+def test_pool_pressure_reclaims_prefix_lru(weights):
+    """Pool exhaustion evicts LRU prefix entries before failing; a pool
+    too small even after reclaim raises BlockPoolExhausted."""
+    _, cfg, _, tp = weights
+    Lr = cfg.num_layers
+    eng = Engine(0, cfg, tp, slots=1, capacity=64, chunk_size=8,
+                 pool_blocks=1 + Lr * 3 * 3, device="cpu")
+    rng = np.random.default_rng(2)
+    for _ in range(4):                          # each entry: 3 blocks/layer
+        eng.prefill_chunked(rng.integers(1, cfg.vocab_size, 24)
+                            .astype(np.int32), 8)
+    assert len(eng.prefix_cache) < 4
+    tiny = Engine(1, cfg, tp, slots=1, capacity=64, chunk_size=8,
+                  pool_blocks=1 + Lr, device="cpu")
+    with pytest.raises(BlockPoolExhausted):
+        tiny.prefill_chunked(rng.integers(1, cfg.vocab_size, 24)
+                             .astype(np.int32), 8)
+
+
+def test_mixed_layout_handoff_rejected(weights):
+    _, cfg, _, tp = weights
+    dense = Engine(0, cfg, tp, slots=2, capacity=64, paged=False,
+                   device="cpu")
+    paged = Engine(1, cfg, tp, slots=2, capacity=64, device="cpu")
+    prompt = np.arange(1, 20, dtype=np.int32)
+    _, dc = dense.prefill(prompt)
+    _, pc = paged.prefill(prompt)
+    assert kv_bytes(dc) == 64 * 2 * cfg.num_layers * cfg.padded_kv_heads \
+        * cfg.dh * 4                            # capacity-padded
+    with pytest.raises(TypeError, match="mixed-layout"):
+        paged.insert(Request(rid=0, prompt=prompt, osl=2), dc)
+    with pytest.raises(TypeError, match="mixed-layout"):
+        dense.insert(Request(rid=1, prompt=prompt, osl=2), pc)
+    assert paged.has_free_slot() and dense.has_free_slot()
