@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA card and check it.
+"""Drive the PyTorch port's paths on one CUDA card and check them.
 
   python3 chip_smoke.py
 
@@ -17,7 +17,10 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      over runs that cycle through more inputs than the L2 holds, beside
      the plain version, the library call where PyTorch has one, and the
      bound computed from the shapes — at the main path's shapes and at one
-     larger shape;
+     larger shape; the WKV kernel (RWKV-6) against its sequential oracle
+     at rwkv6-1.6b's prefill (S=512, also a ragged S=500 and a near-total
+     decay) and decode shapes, from a nonzero state, then timed beside its
+     plain chunked version (no PyTorch call computes the recurrence);
   4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
      seed 0), prefill and paged decode steps with the kernels, with the
      plain path, and with the plain path in float32 on the same weights,
@@ -42,11 +45,22 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      decode kernel ran once per layer per decode step and the paged kernel
      not at all; prints how long a prefix of the first request's stream
      agrees with the paged layout's (bf16 argmax ties may differ);
-  9. profile: one engine of the serve's shape, a prefill and a decode
+  9. RWKV-6 model: full-width rwkv6-1.6b (24 layers, bf16, random weights
+     from seed 0), prefill of 4 prompts of 512 and dense decode steps, the
+     same three ways and the same rule as phase 4; besides, layer 0's
+     fp32 state after the prefill and after one decode step must agree
+     between the kernel and the plain bf16 path (same inputs there) within
+     the WKV tolerance, and its token-shift state exactly;
+ 10. RWKV-6 serve: ``serve.main`` with ``--arch rwkv6-1.6b``, disaggregated
+     as phase 5; fails unless all 16 complete, the WKV kernel ran once
+     per layer per prefill and decode step, no attention kernel ran, and
+     every handoff carried exactly one request's state (12,779,520 bytes);
+ 11. profile: one engine of the serve's shape, a prefill and a decode
      step under ``torch.profiler`` (host-clock step time, device time,
-     idle share, the kernels that take the most time).
+     idle share, the kernels that take the most time), for qwen2.5-3b
+     and for rwkv6-1.6b.
 
-Every path (5-8) runs with every kernel's launch count set to 0 just
+Every path (5-8, 10) runs with every kernel's launch count set to 0 just
 before it and read just after; each phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
@@ -66,12 +80,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 on
+# the CUDA cores (the WKV recurrence's arithmetic), HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # bf16 outputs round at 2^-8 relative and the kernels round p to bf16 for
 # the tensor cores; the JAX package's bf16 kernel tests use the same bound
 KERNEL_ATOL = 2e-2
+# the WKV kernel and its oracle both compute in fp32 from the same inputs
+# and differ only in summation order: relative to the output's scale
+WKV_RTOL = 1e-4
 L2_BYTES = 50 << 20                     # H100 SXM L2 cache
 
 
@@ -84,18 +103,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
 class Timer:
-    """Device time per call: CUDA events around a run of calls that cycle
-    through enough independent input sets to exceed twice the 50 MB L2, so
-    each call reads its inputs from HBM as it would on the main path (and
-    the card, not the host, sets the pace of the run). The median over
-    ``runs`` runs, divided by the calls in a run."""
+    """Time per call: CUDA events around a run of calls that cycle through
+    enough independent input sets to exceed twice the 50 MB L2, so each
+    call reads its inputs from HBM as it would on the main path. The median
+    over ``runs`` runs, divided by the calls in a run. Where a call's
+    kernels take less time than the host needs to issue it (a wrapper's
+    checks and allocations, tens of microseconds), the events measure the
+    host's pace: ``device`` reads the kernels' own time from the profiler
+    instead."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -117,6 +139,23 @@ class Timer:
             per_call.append(start.elapsed_time(end) / len(cases))
         per_call.sort()
         return per_call[len(per_call) // 2]
+
+    def device(self, fn, cases) -> float:
+        """The device time of the kernels one call launches (their sum, per
+        call), from ``torch.profiler`` over one pass through the cases."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        for case in cases:                      # warm-up
+            fn(*case)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for case in cases:
+                fn(*case)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / len(cases)
 
 
 def copies(nbytes: float) -> int:
@@ -194,6 +233,100 @@ def dense_work(lengths, B, H, Hkv):
     return flops, nbytes
 
 
+def wkv_case(torch, gen, B, S, H, N, dev, logw=None):
+    """bf16 r, k, v; fp32 data-dependent logw = -exp(normal - 0.5) (or the
+    given constant), u and a nonzero state, as the model passes them."""
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    r, k, v = (f32(B, S, H, N).to(torch.bfloat16) for _ in range(3))
+    lw = (-torch.exp(f32(B, S, H, N) - 0.5) if logw is None
+          else torch.full((B, S, H, N), float(logw), device=dev))
+    return r, k, v, lw, f32(H, N) * 0.5, f32(B, H, N, N) * 0.1
+
+
+def wkv_work(B, S, H, N):
+    """The recurrence's least work for these shapes: per token and head
+    y = r S (N^2 fused multiply-adds) and S = w S + k^T v (3 N^2
+    operations), plus the u term; r, k, v read once in bf16, logw once and
+    y written once in fp32, u once, the state read and written once."""
+    flops = float(B * S * H) * (5 * N * N + 4 * N)
+    nbytes = (float(B * S * H * N) * (3 * 2 + 4 + 4) + 4.0 * H * N
+              + 2 * 4.0 * B * H * N * N)
+    return flops, nbytes
+
+
+def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
+              S: int = 512, long_S: int = 4096):
+    """The WKV kernel at rwkv6-1.6b's heads (H of size N): at the prefill
+    shape, a ragged S, near-total decay and the decode step's shape (8
+    slots, one token), all from a nonzero state, against the sequential
+    recurrence; in place as the decode step runs it; then timed at the
+    prefill, decode and one longer shape. Returns (max abs error, the
+    prefill shape's timings with the decode shape's under
+    "decode_shape")."""
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.rwkv6.ref import wkv_chunked, wkv_ref
+    err_max = 0.0
+    for (B, Sc, logw) in [(1, S, None), (1, S - 12, None), (1, S, -12.0),
+                          (8, 1, None)]:
+        case = wkv_case(torch, gen, B, Sc, H, N, dev, logw)
+        y, s = wkv_ops.wkv(*case)
+        torch.cuda.synchronize()
+        y_r, s_r = wkv_ref(*case)
+        err = max((y - y_r).abs().max().item(), (s - s_r).abs().max().item())
+        scale = max(y_r.abs().max().item(), s_r.abs().max().item(), 1.0)
+        log(f"# wkv B={B} S={Sc} H={H} N={N} logw={logw or 'data'}: "
+            f"max_abs_err {err:.3e} (scale {scale:.3e})")
+        if not (math.isfinite(err) and bool(torch.isfinite(y).all())
+                and err <= WKV_RTOL * scale):
+            fail(f"wkv disagrees with its sequential oracle: {err}")
+        err_max = max(err_max, err)
+    state = case[5].clone()                     # in place, as decode runs
+    _, s = wkv_ops.wkv(*case[:5], state, out_state=state)
+    torch.cuda.synchronize()
+    if s is not state or not torch.equal(state, wkv_ops.wkv(*case)[1]):
+        fail("wkv: the in-place state differs from the out-of-place one")
+
+    def time_wkv(B, Sc):
+        flops, nbytes = wkv_work(B, Sc, H, N)
+        cases = [wkv_case(torch, gen, B, Sc, H, N, dev)
+                 for _ in range(copies(nbytes))]
+        res = {"ms": timer(wkv_ops.wkv, cases),
+               "device_ms": timer.device(wkv_ops.wkv, cases),
+               "plain_ms": timer(wkv_chunked, cases, runs=3),
+               "library_ms": None}  # no PyTorch call computes the WKV
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_FP32_FLOPS)
+        log(f"# wkv time B={B} S={Sc} H={H} N={N} ({len(cases)} input "
+            "sets): " + json.dumps(res))
+        return res
+
+    row = time_wkv(1, S)
+    row["decode_shape"] = time_wkv(8, 1)
+    time_wkv(1, long_S)
+    return err_max, row
+
+
+def hold(torch, what, L, lk, lp, lr):
+    """The model rule: the kernel path's logits no farther from the float32
+    reference than twice the plain bf16 path's, plus 1e-3 of the scale."""
+    scale = lr.abs().max().item()
+    ek = (lk - lr).abs().max().item() / scale
+    ep = (lp - lr).abs().max().item() / scale
+    ok = bool(torch.isfinite(lk).all()) and ek <= 2 * ep + 1e-3
+    log(f"# model L={L} {what}: max err vs fp32 / scale: "
+        f"kernel {ek:.3e}, plain bf16 {ep:.3e}; argmax kernel "
+        f"{lk.argmax(-1).tolist()} plain {lp.argmax(-1).tolist()} "
+        f"fp32 {lr.argmax(-1).tolist()}")
+    if not ok:
+        fail(f"{what}: kernel path error {ek} vs plain bf16 {ep}")
+
+
+def upcast(params):
+    return {k: ([{n: t.float() for n, t in b.items()} for b in v]
+                if k == "blocks" else v.float()) for k, v in params.items()}
+
+
 def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
     """Full-width model check. Prefill one prompt, then run paged decode
     steps for 4 slots that hold its cache, three ways on the same weights,
@@ -207,24 +340,14 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import init_torch_params
     params = init_torch_params(cfg, 0, device=dev)
-    p32 = {k: ([{n: t.float() for n, t in b.items()} for b in v]
-               if k == "blocks" else v.float()) for k, v in params.items()}
+    p32 = upcast(params)
     c32 = cfg.replace(dtype="float32")
     Bs = 8
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device=dev)
 
     def check(what, lk, lp, lr):
-        scale = lr.abs().max().item()
-        ek = (lk - lr).abs().max().item() / scale
-        ep = (lp - lr).abs().max().item() / scale
-        ok = bool(torch.isfinite(lk).all()) and ek <= 2 * ep + 1e-3
-        log(f"# model L={cfg.num_layers} {what}: max err vs fp32 / scale: "
-            f"kernel {ek:.3e}, plain bf16 {ep:.3e}; argmax kernel "
-            f"{lk.argmax(-1).tolist()} plain {lp.argmax(-1).tolist()} "
-            f"fp32 {lr.argmax(-1).tolist()}")
-        if not ok:
-            fail(f"{what}: kernel path error {ek} vs plain bf16 {ep}")
+        hold(torch, what, cfg.num_layers, lk, lp, lr)
 
     with torch.inference_mode():
         lk, cache = T.prefill_full(params, cfg, {"tokens": prompt},
@@ -263,6 +386,64 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
             check(f"decode step {step}", dk, dp, dr)
             pos, toks = pos + 1, dr[:, :cfg.vocab_size].argmax(-1)
     del params, p32, pools
+
+
+def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
+                     steps: int = 4):
+    """Full-width RWKV-6 check: prefill B prompts of S tokens, then dense
+    decode steps from each version's own state, three ways on the same
+    weights (kernel bf16, plain bf16, plain fp32), held by ``hold``.
+
+    ``hold`` allows the bf16 paths' compounded rounding, so the wiring of
+    the kernel branches is held directly against the plain bf16 path as
+    well: the two differ only in the WKV call, so layer 0 sees the same
+    inputs in both, and its fp32 state after the prefill, and after one
+    decode step of the plain path from a copy of the kernel path's state,
+    must agree within ``WKV_RTOL`` of the state's scale. That checks the
+    [B,S,H,N] and S = 1 reshapes and that ``out_state`` writes the cache
+    row itself. The later layers' state gap is logged."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import init_torch_params
+    params = init_torch_params(cfg, 0, device=dev)
+    p32 = upcast(params)
+    c32 = cfg.replace(dtype="float32")
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    runs = [(params, cfg, "kernel"), (params, cfg, "plain"),
+            (p32, c32, "plain")]
+
+    def same_state(what, ck, cp):
+        gap = [((sk - sp).abs().max() / sp.abs().max()).item()
+               for sk, sp in zip(ck["s"], cp["s"])]
+        tm = (ck["tm_x"][0] - cp["tm_x"][0]).abs().max().item()
+        log(f"# model {cfg.name} {what}: kernel vs plain bf16 state gap / "
+            f"scale: layer 0 {gap[0]:.3e}, max over layers {max(gap):.3e}; "
+            f"layer 0 tm_x gap {tm:.3e}")
+        if not gap[0] <= WKV_RTOL or tm != 0.0:
+            fail(f"{cfg.name} {what}: layer 0 state of the kernel path "
+                 f"differs from the plain path's (s {gap[0]}, tm_x {tm})")
+
+    with torch.inference_mode():
+        out = [T.prefill_full(p, c, {"tokens": prompt}, impl=impl)
+               for p, c, impl in runs]
+        hold(torch, f"{cfg.name} prefill B={B} S={S}", cfg.num_layers,
+             *(lg for lg, _ in out))
+        caches = [cache for _, cache in out]
+        same_state(f"prefill B={B} S={S}", caches[0], caches[1])
+        toks = out[2][0][:, :cfg.vocab_size].argmax(-1)
+        twin = {k: v.clone() for k, v in caches[0].items()}
+        _, twin = T.decode_step(params, cfg, twin, toks, impl="plain")
+        for step in range(steps):
+            logits = []
+            for (p, c, impl), cache in zip(runs, caches):
+                lg, _ = T.decode_step(p, c, cache, toks, impl=impl)
+                logits.append(lg)
+            if step == 0:
+                same_state("decode step 0", caches[0], twin)
+            hold(torch, f"{cfg.name} decode step {step}", cfg.num_layers,
+                 *logits)
+            toks = logits[2][:, :cfg.vocab_size].argmax(-1)
+    del params, p32, caches, twin
 
 
 def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
@@ -331,8 +512,8 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 toks = eng.decode_step(toks)
-        report(f"decode (B={slots}, context ~{S + 3 + steps})", prof,
-               steps, wall)
+        report(f"{cfg.name} decode (B={slots}, context ~{S + 3 + steps})",
+               prof, steps, wall)
         t0 = time.perf_counter()
         for p in prompts[slots:slots + 2]:
             eng.prefill(p)
@@ -341,7 +522,7 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
                                  ProfilerActivity.CUDA]) as prof:
             for p in prompts[slots + 2:]:
                 eng.prefill(p)
-        report(f"prefill (S={S})", prof, 2, wall)
+        report(f"{cfg.name} prefill (S={S})", prof, 2, wall)
     del eng, params
 
 
@@ -379,6 +560,33 @@ def dense_serve(torch, cfg, dev, paged: bool, streams) -> dict:
     return rec
 
 
+def check_rwkv_serve(rec, n, cfg, requests: int = 16) -> None:
+    """The RWKV serve's checks: every request completes, the WKV kernel
+    ran once per layer per prefill and decode step and no attention
+    kernel ran, and each handoff carried exactly one request's state."""
+    H, N = cfg.num_heads, cfg.dh
+    handoff = cfg.num_layers * (H * N * N * 4 + 2 * cfg.d_model
+                                * cfg.tdtype.itemsize)
+    moved = rec["transferred_MB"] * 2**20
+    if rec["completed"] != requests:
+        fail(f"rwkv serve completed {rec['completed']} of {requests}")
+    if n["wkv"] < cfg.num_layers * (rec["prefills"] + rec["decode_steps"]) \
+            or rec["prefills"] < requests or rec["decode_steps"] < 1:
+        fail(f"rwkv serve: {n['wkv']} wkv launches for {rec['prefills']} "
+             f"prefills and {rec['decode_steps']} decode steps")
+    if n["flash"] or n["paged"] or n["dense"]:
+        fail(f"rwkv serve launched attention kernels: {n}")
+    # a request the elastic matcher leaves on its prefill engine (turned
+    # decode) is inserted there and moves nothing
+    if abs(moved - rec["transfers"] * handoff) > 0.5 or not (
+            rec["transfers"] == requests
+            or (rec.get("rate_matcher_moves") and rec["transfers"] < requests)):
+        fail(f"rwkv serve moved {moved} bytes in {rec['transfers']} "
+             f"transfers; one handoff is {handoff} bytes")
+    log(f"# rwkv handoff: {rec['transfers']} x {handoff} bytes = "
+        f"{moved:.0f} bytes")
+
+
 def main() -> None:
     try:
         import torch
@@ -397,6 +605,7 @@ def main() -> None:
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
@@ -459,6 +668,7 @@ def main() -> None:
                  for _ in range(copies(nbytes))]
         res = {
             "ms": timer(fl_ops.flash_attention, cases),
+            "device_ms": timer.device(fl_ops.flash_attention, cases),
             "plain_ms": timer(flash_attention_ref, cases, runs=3),
             "library_ms": timer(
                 lambda q, k, v: F.scaled_dot_product_attention(
@@ -504,6 +714,7 @@ def main() -> None:
         tbl = first[3]
         res = {
             "ms": timer(dec_ops.decode_attention_paged, cases),
+            "device_ms": timer.device(dec_ops.decode_attention_paged, cases),
             "plain_ms": timer(dec_ops.decode_attention_paged_plain, cases,
                               runs=3),
             "library_ms": None,     # PyTorch has no paged attention call
@@ -596,6 +807,7 @@ def main() -> None:
                 attn_mask=keep, enable_gqa=True)
 
         res = {"ms": timer(dec_ops.decode_attention, cases),
+               "device_ms": timer.device(dec_ops.decode_attention, cases),
                "plain_ms": timer(decode_attention_ref, cases, runs=3),
                "library_ms": timer(sdpa, cases)}
         res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, 16,
@@ -612,6 +824,11 @@ def main() -> None:
     log(f"# phase kernels (flash chunks, dense): "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 3e) WKV (kernel 4)
+    t0 = time.perf_counter()
+    wkv_err, rows["wkv"] = wkv_phase(torch, dev, gen, timer)
+    log(f"# phase kernels (wkv): {time.perf_counter() - t0:.1f} s")
+
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
     model_phase(torch, cfg, dev, gen)
@@ -619,7 +836,8 @@ def main() -> None:
 
     counters = {"flash": fl_ops.flash_attention,
                 "paged": dec_ops.decode_attention_paged,
-                "dense": dec_ops.decode_attention}
+                "dense": dec_ops.decode_attention,
+                "wkv": wkv_ops.wkv}
     by_path = {}
 
     def drive(path, fn):
@@ -711,9 +929,25 @@ def main() -> None:
     log(f"# dense vs paged, request 0: first {agree} of {len(d)} tokens "
         f"agree ({time.perf_counter() - t0:.1f} s for the paged run)")
 
-    # 9) profile: where a prefill and a decode step spend their time
+    # 9) RWKV-6 model: full-width rwkv6-1.6b, kernel vs plain vs fp32
+    rwkv = get_config("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    rwkv_model_phase(torch, rwkv, dev, gen)
+    torch.cuda.empty_cache()
+    log(f"# phase rwkv model: {time.perf_counter() - t0:.1f} s")
+
+    # 10) RWKV-6 serve: disaggregated, the state handed over
+    rec, n = drive("rwkv", lambda: serve.main(
+        ["--arch", "rwkv6-1.6b", "--requests", "16", "--isl", "512",
+         "--osl", "64", "--slots", "8", "--prefill-engines", "1",
+         "--decode-engines", "2", "--rate-matcher", "elastic"]))
+    sla(rec)
+    check_rwkv_serve(rec, n, rwkv)
+
+    # 11) profile: where a prefill and a decode step spend their time
     t0 = time.perf_counter()
     profile_phase(torch, cfg, dev)
+    profile_phase(torch, rwkv, dev)
     log(f"# phase profile: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
@@ -737,8 +971,12 @@ def main() -> None:
              "src/repro/kernels/decode_attention/decode_attention.py:68",
          "launches": total("dense"), "max_abs_err": dense_err,
          **rows["dense"]},
+        {"name": "wkv", "route": "cuda",
+         "source": source.format("rwkv6", "wkv"),
+         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:78",
+         "launches": total("wkv"), "max_abs_err": wkv_err, **rows["wkv"]},
     ]
-    for k, key in zip(kernels, ("flash", "paged", "dense")):
+    for k, key in zip(kernels, ("flash", "paged", "dense", "wkv")):
         k["launches_by_path"] = {path: n[key] for path, n in by_path.items()}
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -1,7 +1,8 @@
 """Architecture registry: --arch <id> -> ModelConfig (full + smoke).
 
-The port registers the architectures whose families it serves; this slice
-carries the dense-attention family's ``qwen2.5-3b``."""
+The port registers the architectures whose families it serves: the
+dense-attention family's ``qwen2.5-3b`` and the RWKV-6 family's
+``rwkv6-1.6b``."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

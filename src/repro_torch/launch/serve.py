@@ -15,6 +15,14 @@ decode piggybacked between chunks (``ChunkedPiggybackScheduler``) and the
       --osl 64 --slots 8 --rate-matcher elastic
   PYTHONPATH=src python -m repro_torch.launch.serve --mode coloc \\
       --scheduler prefix-affinity --workload sessions --turns 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
+      --requests 16 --isl 512 --osl 64 --slots 8
+
+``--arch rwkv6-1.6b`` (attention-free) serves disaggregated only: the
+prefill engine hands its O(1) recurrent state to a dense decode engine.
+Its prompts are never chunked, so ``--mode coloc`` and ``--scheduler
+prefix-affinity`` (both chunked prefill) are refused at start-up, where
+the reference fails inside its chunked prefill.
 
 The full configuration runs on the card (``--device`` defaults to
 ``cuda``); ``--smoke`` takes the smoke-sized configuration and
@@ -135,6 +143,11 @@ def main(argv=None) -> Dict[str, Any]:
                  "(engines must be built with a PrefixCache)")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
+    if cfg.block != "attn" and (args.mode == "coloc"
+                                or args.scheduler == "prefix-affinity"):
+        ap.error(f"--arch {args.arch}: {cfg.block} prompts are never "
+                 "chunked, so --mode coloc and --scheduler prefix-affinity "
+                 "(chunked prefill) do not apply; use --mode disagg")
     params = init_torch_params(cfg, args.seed, device=args.device)
     work, expected = build_workload(args, cfg.vocab_size)
     # one chunk value feeds both the engines' PrefixCache and the scheduler

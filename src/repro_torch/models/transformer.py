@@ -1,5 +1,5 @@
-"""Dense-attention decoder: the attention family of
-``repro.models.transformer`` in PyTorch.
+"""The decoder of ``repro.models.transformer`` in PyTorch: the dense
+attention family and the attention-free RWKV-6 family.
 
 Parameters keep the reference's names and layouts (``wq`` [D,Hp,dh],
 ``wo`` [Hp,dh,D], ...), with ``params["blocks"]`` a list of per-layer
@@ -23,8 +23,16 @@ Two KV layouts, as in the reference:
   ever reads it.
 
 Both layouts are updated in place where the reference's jit returns new
-arrays (or donates them). MoE, kv-quant, the sliding window and the
-recurrent families come with later slices (``unported`` names which).
+arrays (or donates them).
+
+The RWKV-6 family (``cfg.block == "rwkv"``, ``models/rwkv6.py``) keeps no
+KV: its dense "cache" is the recurrent state ``{"s": [L, B, H, N, N] fp32,
+"tm_x", "cm_x": [L, B, D], "pos": [B]}``, O(1) per request, so it has no
+capacity and no paged layout, and its prefill is never chunked. Every WKV
+runs through the WKV kernel under ``impl="kernel"``.
+
+MoE, kv-quant, the sliding window and the hybrid family come with later
+slices (``unported`` names which).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6
 from repro_torch.models.config import ModelConfig
 
 f32 = torch.float32
@@ -51,19 +60,19 @@ def _check_impl(impl: str) -> None:
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
-    or None for the dense attention family it covers."""
-    if cfg.block == "rwkv":
-        return "RWKV-6 blocks come with the RWKV-6 slice (kernel 4)"
-    if cfg.block != "attn":
+    or None for the families it covers: dense attention and RWKV-6."""
+    if cfg.block not in ("attn", "rwkv"):
         return f"{cfg.block} blocks come with the hybrid slice"
+    if cfg.frontend:
+        return f"the {cfg.frontend} frontend comes with the hybrid slice"
+    if cfg.block == "rwkv":         # its own channel mix; no KV to quantize
+        return None
     if cfg.kv_quant:
         return "kv-quant comes with the kv-quant / sliding-window slice"
     if cfg.sliding_window:
         return "the sliding window comes with the kv-quant / sliding-window slice"
     if cfg.moe is not None:
         return "MoE comes with the MoE slice"
-    if cfg.frontend:
-        return f"the {cfg.frontend} frontend comes with the hybrid slice"
     return None
 
 
@@ -71,6 +80,17 @@ def _check_family(cfg: ModelConfig) -> None:
     why = unported(cfg)
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why}")
+
+
+def _check_attn(cfg: ModelConfig, what: str) -> None:
+    """Chunked prefill and the paged layout are for the attention family,
+    as in the reference: an RWKV prompt runs whole (its recurrence is
+    already chunked inside the WKV), and its O(1) state has nothing to
+    page."""
+    _check_family(cfg)
+    if cfg.block != "attn":
+        raise ValueError(f"{cfg.name}: {what} is for the attention family "
+                         f"only, not {cfg.block} blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +107,8 @@ def _normal(gen, shape, std, device, dtype):
 def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     """Random parameters with the reference's distributions and scales
     (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
-    ``init_params``), drawn from a ``torch.Generator`` on ``device``. The
+    ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer), drawn
+    from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
     the same weights convert the JAX ones (``repro_torch.convert``)."""
     _check_family(cfg)
@@ -108,6 +129,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
 
     blocks: List[Dict[str, torch.Tensor]] = []
     for _ in range(cfg.num_layers):
+        if cfg.block == "rwkv":
+            blocks.append(rwkv6.init_rwkv_block(gen, cfg, device=device))
+            continue
         p = {
             "attn_norm": ones(D),
             "wq": _normal(gen, (D, Hp, dh), s, device, dt),
@@ -341,8 +365,11 @@ def _ffn(p, x, cfg: ModelConfig):
 
 
 def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
-    """One attention-family layer over the prompt; returns (x, cache
-    entry {"k","v": [B,S,Hkvp,dh]})."""
+    """One layer over the prompt; returns (x, cache entry): {"k","v":
+    [B,S,Hkvp,dh]}, or an RWKV layer's final state."""
+    if cfg.block == "rwkv":
+        state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
+        return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
     x = _ffn(p, x + attn_out, cfg)
@@ -352,20 +379,21 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
 def prefill_full(params, cfg: ModelConfig, inputs, *,
                  capacity: Optional[int] = None, impl: str = "kernel"):
     """Single-shot prefill. inputs: {"tokens": [B,S] int}. Returns (logits
-    [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]})."""
+    [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]}); for RWKV
+    the cache is the state after the prompt, and ``capacity`` is unused."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, inputs["tokens"])
     B, S, _ = x.shape
     capacity = capacity or S
-    ks, vs = [], []
+    entries = []
     for p in params["blocks"]:
         x, entry = _layer_prefill(p, x, cfg, impl)
-        ks.append(entry["k"])
-        vs.append(entry["v"])
+        entries.append(entry)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    if capacity > S:        # grow the cache to the requested capacity
+    cache = {key: torch.stack([e[key] for e in entries])
+             for key in _cache_keys(cfg)}
+    if cfg.block == "attn" and capacity > S:    # grow to the capacity
         for key in ("k", "v"):
             c = cache[key]
             pad = c.new_zeros(c.shape[:2] + (capacity - S,) + c.shape[3:])
@@ -376,19 +404,37 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
     """Empty dense cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B] int32}
-    (decoding starts at pos 0); the attention branch of the reference's
-    ``init_cache``."""
+    (decoding starts at pos 0), or for RWKV the zero state {"s":
+    [L,B,H,N,N] fp32, "tm_x", "cm_x": [L,B,D], "pos"} (no capacity): the
+    reference's ``init_cache``."""
     _check_family(cfg)
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.block == "rwkv":
+        state = rwkv6.init_rwkv_state(cfg, cfg.num_layers * batch,
+                                      device=device)
+        cache = {key: t.reshape((cfg.num_layers, batch) + t.shape[1:])
+                 for key, t in state.items()}
+        return {**cache, "pos": pos}
     shape = (cfg.num_layers, batch, capacity, cfg.padded_kv_heads, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+            "pos": pos}
 
 
-def _layer_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
-                  impl: str):
+def _cache_keys(cfg: ModelConfig):
+    """The per-layer entries of a dense cache (all but ``pos``)."""
+    return ("s", "tm_x", "cm_x") if cfg.block == "rwkv" else ("k", "v")
+
+
+def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
+    """One layer of a decode step; ``entry`` is this layer's cache views,
+    written in place."""
+    if cfg.block == "rwkv":
+        x1, _ = rwkv6.rwkv_block_step(p, x1, entry, cfg, impl=impl)
+        return x1
     xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
-    attn_out, _ = attn_decode(p, xn, cfg, k_cache, v_cache, pos, impl=impl)
+    attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
+                              impl=impl)
     return _ffn(p, x1 + attn_out, cfg)
 
 
@@ -397,16 +443,18 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     """Batched decode step on the dense layout. tokens: [B]. Returns
     (logits [B,Vp] fp32, cache) with ``pos + 1`` for every slot, as the
     reference (inactive slots advance too; their writes clamp at C-1 and
-    nothing live reads them). K/V are updated in place."""
+    nothing live reads them; an RWKV step advances their state, which
+    ``insert`` overwrites whole). K/V or the state are updated in place."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     pos = cache["pos"]
+    keys = _cache_keys(cfg)
     for i, p in enumerate(params["blocks"]):
-        x = _layer_decode(p, x, cfg, cache["k"][i], cache["v"][i], pos,
-                          impl)
+        x = _layer_decode(p, x, cfg, {key: cache[key][i] for key in keys},
+                          pos, impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (_logits(params, cfg, x[:, 0]),
-            {"k": cache["k"], "v": cache["v"], "pos": pos + 1})
+            {**{key: cache[key] for key in keys}, "pos": pos + 1})
 
 
 def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
@@ -417,7 +465,7 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
     ``start`` resume from a cached prefix (tokens[:, :start] already in the
     cache); that cache is written in place. Returns (logits [B,Vp] fp32 at
     the last input position, cache with ``pos`` = the input length)."""
-    _check_family(cfg)
+    _check_attn(cfg, "chunked prefill")
     x = embed_tokens(params, cfg, inputs["tokens"])
     B, S, _ = x.shape
     capacity = capacity or S
@@ -514,7 +562,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
     """Batched decode step on the paged layout. tables: [L,B,nb] int32;
     pos, tokens: [B]. Returns (logits [B,Vp] fp32, pool, pos+1); the pool
     is updated in place."""
-    _check_family(cfg)
+    _check_attn(cfg, "the paged layout")
     x = embed_tokens(params, cfg, tokens[:, None])
     pk, pv = pool["k"], pool["v"]
     for p, tbl in zip(params["blocks"], tables):
@@ -539,7 +587,7 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
     ``q_offset=lo`` and un-expanded GQA (the reference's ``"pallas"``
     branch), ``"plain"`` through the mask-based core over the whole window
     (its ``"xla"`` branch). Returns (logits [1,Vp] fp32, pool)."""
-    _check_family(cfg)
+    _check_attn(cfg, "chunked prefill")
     x = embed_tokens(params, cfg, inputs["tokens"])
     B, S, _ = x.shape
     Bs = pool["k"].shape[1]

@@ -11,25 +11,31 @@ surface ``Cluster`` drives: ``prefill``, ``prefill_chunked``, ``insert``,
 Decode batches continuously over fixed slots. Two KV layouts share that
 surface, as in ``repro.serving.engine``:
 
-- **paged** (the default): KV lives in a block pool ``[num_blocks,
+- **paged** (the default where ``supports_paged``, i.e. the attention
+  family): KV lives in a block pool ``[num_blocks,
   block_size, Hkvp, dh]`` shared by all layers and slots, addressed
   through per-layer block tables (the host-side refcounts are
   ``serving/blocks.py``). ``insert`` scatters only the request's blocks,
   ``evict`` is an O(1) refcount decrement per block, decode attends over a
   pow2-bucketed window that tracks the active context, and the prefix
   cache shares blocks between entries by refcount, never by copy.
-- **dense** (``paged=False``): one ``[slots, capacity]``-wide cache with
-  per-slot positions.
+- **dense** (``paged=False``, and always for RWKV-6): one ``[slots,
+  capacity]``-wide cache with per-slot positions; for RWKV-6 the
+  per-slot recurrent state ``s``/``tm_x``/``cm_x``, which is what the
+  disaggregated handoff carries (O(1) per request, whatever the prompt).
 
 ``prefill_chunked`` runs the prompt in chunks (the co-located piggyback
-path) and, for an engine built with ``chunk_size``, consults and fills a
-``PrefixCache``. As in the reference, a prompt is padded with token 0 to
-whole chunks, and the padded prompt is what the model sees: the first
-token is read at its last position, and decoding continues after the pad.
+path) and, for an attention-family engine built with ``chunk_size``,
+consults and fills a ``PrefixCache``; RWKV-6 prompts are never chunked
+(``transformer.prefill_chunked`` refuses them, as the reference asserts).
+As in the reference, a prompt is padded with token 0 to whole chunks, and
+the padded prompt is what the model sees: the first token is read at its
+last position, and decoding continues after the pad.
 
 On a CUDA device every prefill (whole or chunked) runs the hand-written
 flash-attention kernel, every paged decode step the paged decode kernel
 and every dense decode step the dense decode kernel (``impl="kernel"``);
+an RWKV-6 prefill and decode step run the WKV kernel in every layer;
 on the CPU the same calls run their plain PyTorch versions. The kernels
 are built when the engine is made, never inside a timed step.
 
@@ -146,7 +152,14 @@ class Engine:
         if self.impl == "kernel":
             _build.build_all()          # never inside a timed step
 
-        self.paged = True if paged is None else bool(paged)
+        if paged is None:
+            self.paged = T.supports_paged(cfg)
+        elif paged and not T.supports_paged(cfg):
+            raise ValueError(f"{cfg.name}: paged KV unsupported for "
+                             f"{cfg.block}/kv_quant={cfg.kv_quant}/"
+                             f"sliding_window={cfg.sliding_window}")
+        else:
+            self.paged = bool(paged)
         self.block_size = block_size
         if chunk_size and self.paged and chunk_size % block_size:
             raise ValueError(f"paged chunked prefill needs chunk_size "
@@ -154,6 +167,7 @@ class Engine:
                              "== 0")
         self._free = list(range(slots))
         self.slot_req: Dict[int, Any] = {}
+        with_prefix = bool(chunk_size) and cfg.block == "attn"
         if self.paged:
             Lr = cfg.num_layers
             self._nb_max = -(-capacity // block_size)
@@ -168,9 +182,10 @@ class Engine:
             self.cache = None
             self.prefix_cache = (
                 PrefixCache(chunk_size, on_evict=self._release_entry)
-                if chunk_size else None)
+                if with_prefix else None)
         else:
-            self.prefix_cache = PrefixCache(chunk_size) if chunk_size else None
+            self.prefix_cache = (PrefixCache(chunk_size) if with_prefix
+                                 else None)
             self.cache = T.init_cache(cfg, slots, capacity,
                                       device=self.device)
         self._warm_up()
@@ -183,8 +198,9 @@ class Engine:
         compares engines' step times; in one process only the first engine
         to step would pay those costs (the reference's engines each compile
         their own jit, and so each pay their own). Every slot is inactive:
-        paged writes land in the trash block, dense writes in rows that
-        ``insert`` overwrites, and the dense positions are reset."""
+        paged writes land in the trash block, dense writes in rows (or, for
+        RWKV, the whole state of every slot) that ``insert`` overwrites, and
+        the dense positions are reset."""
         toks = self._step_tokens({})
         if self.paged:
             T.decode_step_paged(
@@ -308,7 +324,8 @@ class Engine:
         ``on_chunk(i, n)`` fires once per chunk after the whole prefill has
         been timed, as in the reference, so a co-located engine's decode
         rounds follow the prefill tick on the clock. Reuses the longest
-        cached prompt prefix when a PrefixCache is attached."""
+        cached prompt prefix when a PrefixCache is attached. Attention
+        family only: the model refuses an RWKV prompt."""
         self._check()
         if self.paged:
             tok, payload, n_chunks = self._prefill_chunked_paged(prompt,
@@ -418,7 +435,8 @@ class Engine:
     def insert(self, req, payload) -> int:
         """KV handoff: place a prefilled request into a free slot. Paged
         engines scatter only the request's blocks (O(request), not
-        O(capacity)); dense engines copy a capacity-wide row."""
+        O(capacity)); dense engines copy a capacity-wide row (RWKV: the
+        slot's whole state)."""
         self._check()
         if self.paged and not isinstance(payload, PagedCache):
             raise TypeError("paged engine got a dense handoff payload; "
@@ -451,15 +469,20 @@ class Engine:
         return slot
 
     def _insert_dense(self, slot: int, src) -> None:
-        """Copy a B=1 cache into decode slot ``slot``: zero-padded or cut to
-        this engine's capacity, in place."""
+        """Copy a B=1 cache into decode slot ``slot``, in place: K/V rows
+        zero-padded or cut to this engine's capacity, every other entry
+        (an RWKV state) as a whole row, as the reference's ``_insert_impl``."""
         C = self.capacity
-        for kk in ("k", "v"):
-            row = src[kk][:, 0, :C]
-            dst = self.cache[kk][:, slot]
-            dst[:, :row.shape[1]] = row.to(device=dst.device,
-                                           dtype=dst.dtype)
-            dst[:, row.shape[1]:] = 0
+        for kk, dst_all in self.cache.items():
+            if kk == "pos":
+                continue
+            dst = dst_all[:, slot]
+            row = src[kk][:, 0]
+            if kk in ("k", "v"):
+                row = row[:, :C]
+                dst[:, row.shape[1]:] = 0
+                dst = dst[:, :row.shape[1]]
+            dst.copy_(row)
         self.cache["pos"][slot] = src["pos"][0]
 
     def evict(self, slot: int):

@@ -6,7 +6,9 @@ numpy inputs.
 Tolerances: every comparison is in float32, where the two sides differ
 only in summation order (online softmax over tiles vs one softmax over the
 row), so 2e-5 — the bound ``tests/test_kernels.py`` uses for float32 — is
-ample; the garbage-block case is exact up to 1e-6, as there.
+ample; the garbage-block case is exact up to 1e-6, as there. The WKV
+recurrence (chunked against sequential) is held to 1e-5 of the output's
+scale, the bound of ``tests/test_kernels.py::test_wkv_kernel``.
 """
 import jax
 import jax.numpy as jnp
@@ -21,12 +23,17 @@ from repro.kernels.decode_attention.ref import (decode_attention_paged_ref,
                                                 decode_attention_ref)
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import attention_ref
+from repro.kernels.rwkv6.ops import wkv as jax_wkv
+from repro.kernels.rwkv6.ref import wkv_ref as jax_wkv_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref as port_decode_attention_ref,
     paged_decode_partials_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rwkv6.ops import wkv
+from repro_torch.kernels.rwkv6.ref import wkv_chunked, wkv_step
+from repro_torch.kernels.rwkv6.ref import wkv_ref as port_wkv_ref
 
 TOL = 2e-5      # float32, summation order only
 NEG_INF = -1e30
@@ -276,3 +283,117 @@ def test_wrappers_check_shapes():
     with pytest.raises(ValueError):             # k and v differ
         flash_attention(q, torch.zeros((1, 4, 2, 16)),
                         torch.zeros((1, 5, 2, 16)))
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV (kernel 4)
+
+
+def _wkv_inputs(B, S, H, N, seed, strong_decay=False):
+    """r, k, v, logw [B,S,H,N], u [H,N], state0 [B,H,N,N] in float32, as
+    ``tests/test_kernels.py`` draws them (data-dependent logw <= 0, a
+    nonzero state)."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, S, H, N)).astype(np.float32)
+               for _ in range(3))
+    if strong_decay:
+        logw = np.full((B, S, H, N), -12.0, np.float32)
+    else:
+        logw = -np.exp(rng.standard_normal((B, S, H, N)) - 0.5).astype(
+            np.float32)
+    u = (rng.standard_normal((H, N)) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, N, N)) * 0.1).astype(np.float32)
+    return r, k, v, logw, u, s0
+
+
+def _jax_wkv_ref(r, k, v, logw, u, s0):
+    """The JAX package's sequential oracle, in its [BH,S,N] layout."""
+    B, S, H, N = r.shape
+    rr, kk, vv, lw = (jnp.asarray(a).transpose(0, 2, 1, 3).reshape(
+        B * H, S, N) for a in (r, k, v, logw))
+    uu = jnp.broadcast_to(jnp.asarray(u)[None], (B, H, N)).reshape(B * H, N)
+    y, s = jax_wkv_ref(rr, kk, vv, lw, uu, jnp.asarray(s0).reshape(
+        B * H, N, N))
+    return (np.asarray(y).reshape(B, H, S, N).transpose(0, 2, 1, 3),
+            np.asarray(s).reshape(B, H, N, N))
+
+
+def _rel(got, want):
+    """max |got - want| over the output's scale (at least 1), the measure
+    ``tests/test_kernels.py::test_wkv_kernel`` bounds by 1e-5."""
+    got = got.numpy() if torch.is_tensor(got) else np.asarray(got)
+    want = np.asarray(want)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1.0)
+
+
+@pytest.mark.parametrize("B,S,H,N,chunk", [   # tests/test_kernels.py:136
+    (2, 128, 2, 64, 32),
+    (1, 96, 4, 32, 32),
+    (2, 64, 2, 64, 64),
+    (1, 160, 2, 64, 32),     # ragged against the Pallas chunk of 64
+    (3, 1, 2, 64, 64),       # one token: the decode step's shape
+])
+def test_wkv_matches_jax(B, S, H, N, chunk):
+    """The port's wrapper (its CPU path, the chunked form) and its
+    sequential oracle against the Pallas kernel in interpret mode and the
+    JAX package's oracle: float32, summation order only, so within 1e-5 of
+    the output's scale (the reference test's bound) for y and the state."""
+    args = _wkv_inputs(B, S, H, N, seed=S + N)
+    t = [_t(a) for a in args]
+    n0 = wkv.launches
+    y, s = wkv(*t)
+    assert wkv.launches == n0               # CPU: plain version only
+    assert y.dtype == s.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, N) and tuple(s.shape) == (B, H, N, N)
+    y_o, s_o = port_wkv_ref(*t)
+    y_p, s_p = jax_wkv(*map(jnp.asarray, args), chunk=chunk, interpret=True)
+    y_j, s_j = _jax_wkv_ref(*args)
+    for got_y, got_s in ((y, s), (y_o, s_o)):
+        for want_y, want_s in ((y_p, s_p), (y_j, s_j)):
+            assert _rel(got_y, want_y) < 1e-5
+            assert _rel(got_s, want_s) < 1e-5
+    # the one-token step of the decode path is the same recurrence
+    if S == 1:
+        y1, s1 = wkv_step(*(x[:, 0] for x in t[:4]), t[4], t[5])
+        assert _rel(y1, y_j[:, 0]) < 1e-5 and _rel(s1, s_j) < 1e-5
+
+
+def test_wkv_strong_decay_stays_finite():
+    """logw = -12 in every channel (near-total decay per token): both plain
+    versions stay finite and agree with the JAX oracle, as
+    ``test_wkv_strong_decay_stability`` asks of the Pallas kernel."""
+    args = _wkv_inputs(1, 128, 2, 32, seed=5, strong_decay=True)
+    t = [_t(a) for a in args]
+    y_j, s_j = _jax_wkv_ref(*args)
+    for y, s in (wkv(*t), port_wkv_ref(*t)):
+        assert torch.isfinite(y).all() and torch.isfinite(s).all()
+        assert _rel(y, y_j) < 1e-5 and _rel(s, s_j) < 1e-5
+
+
+def test_wkv_chunk_length_and_out_state():
+    """The chunked form is exact for any chunk length, and ``out_state``
+    (here the input state itself, as the decode step passes it) receives
+    the final state and is what comes back."""
+    args = _wkv_inputs(2, 45, 2, 32, seed=9)
+    t = [_t(a) for a in args]
+    y_o, s_o = port_wkv_ref(*t)
+    for chunk in (1, 7, 45, 64):
+        y, s = wkv_chunked(*t, chunk=chunk)
+        assert _rel(y, y_o) < 1e-5 and _rel(s, s_o) < 1e-5
+    state = t[5].clone()
+    y, s = wkv(*t[:5], state, out_state=state)
+    assert s is state and _rel(state, s_o) < 1e-5 and _rel(y, y_o) < 1e-5
+
+
+def test_wkv_wrapper_checks_shapes():
+    r = torch.zeros((1, 4, 2, 32))
+    u, s0 = torch.zeros((2, 32)), torch.zeros((1, 2, 32, 32))
+    with pytest.raises(ValueError, match="u"):
+        wkv(r, r, r, r, torch.zeros((2, 16)), s0)
+    with pytest.raises(ValueError, match="state0"):
+        wkv(r, r, r, r, u, torch.zeros((1, 2, 32, 16)))
+    with pytest.raises(ValueError, match="logw"):
+        wkv(r, r, r, torch.zeros((1, 5, 2, 32)), u, s0)
+    with pytest.raises(ValueError, match="out_state"):
+        wkv(r, r, r, r, u, s0, out_state=torch.zeros((2, 2, 32, 32)))

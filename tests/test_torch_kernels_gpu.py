@@ -15,12 +15,18 @@ from repro_torch.kernels.decode_attention.ops import (
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.rwkv6.ops import wkv
+from repro_torch.kernels.rwkv6.ref import wkv_chunked, wkv_ref
 
 pytestmark = pytest.mark.gpu
 
 # bf16 outputs (2^-8 relative) and p rounded to bf16 inside the kernels:
 # the bound the JAX package's bf16 kernel tests use
 ATOL = 2e-2
+# the WKV kernel and its oracle both compute in fp32 from the same inputs
+# and differ only in summation order (and fused multiply-adds): relative
+# to the output's scale, ten times the CPU parity bound of 1e-5
+WKV_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -168,3 +174,77 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         decode_attention(torch.zeros((1, 4, 128), device=cuda), kc, kc, lens)
     with pytest.raises(ValueError):                          # int64 lengths
         decode_attention(kc[:, 0, :, :].repeat(1, 2, 1), kc, kc, lens.long())
+
+
+def _wkv_case(rng, B, S, H, N, dev, in_dtype=torch.bfloat16, logw=None):
+    """r, k, v in ``in_dtype``; data-dependent fp32 logw <= 0 (or the given
+    constant); fp32 u and a nonzero fp32 state."""
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(dev)
+    r, k, v = (f32(B, S, H, N).to(in_dtype) for _ in range(3))
+    lw = (-torch.exp(f32(B, S, H, N) - 0.5) if logw is None
+          else torch.full((B, S, H, N), float(logw), device=dev))
+    return r, k, v, lw, f32(H, N, scale=0.5), f32(B, H, N, N, scale=0.1)
+
+
+def _wkv_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1.0)).item()
+
+
+@pytest.mark.parametrize("B,S,H,N,in_dtype", [
+    (1, 512, 32, 64, torch.bfloat16),   # rwkv6-1.6b prefill
+    (8, 1, 32, 64, torch.bfloat16),     # rwkv6-1.6b decode step, 8 slots
+    (1, 500, 32, 64, torch.bfloat16),   # ragged: no multiple of the tile
+    (2, 128, 2, 64, torch.float32),     # tests/test_kernels.py shapes
+    (1, 96, 4, 32, torch.float32),
+    (1, 160, 2, 64, torch.float32),
+    (3, 33, 4, 32, torch.bfloat16),
+])
+def test_wkv_kernel_matches_ref(cuda, B, S, H, N, in_dtype):
+    rng = np.random.default_rng(23)
+    r, k, v, lw, u, s0 = _wkv_case(rng, B, S, H, N, cuda, in_dtype)
+    n0 = wkv.launches
+    y, s = wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert wkv.launches == n0 + 1
+    assert y.dtype == s.dtype == torch.float32 and y.shape == r.shape
+    y_r, s_r = wkv_ref(r, k, v, lw, u, s0)
+    assert _wkv_err(y, y_r) <= WKV_RTOL and _wkv_err(s, s_r) <= WKV_RTOL
+    y_c, s_c = wkv_chunked(r, k, v, lw, u, s0)      # the plain model path
+    assert _wkv_err(y, y_c) <= WKV_RTOL and _wkv_err(s, s_c) <= WKV_RTOL
+
+
+def test_wkv_kernel_in_place_and_strong_decay(cuda):
+    """``out_state=state0`` overwrites the state in place with the same
+    result; near-total decay (logw = -12) stays finite and right."""
+    rng = np.random.default_rng(29)
+    r, k, v, lw, u, s0 = _wkv_case(rng, 8, 1, 32, 64, cuda)
+    y_r, s_r = wkv_ref(r, k, v, lw, u, s0)
+    state = s0.clone()
+    y, s = wkv(r, k, v, lw, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert s is state
+    assert _wkv_err(y, y_r) <= WKV_RTOL and _wkv_err(state, s_r) <= WKV_RTOL
+    r, k, v, lw, u, s0 = _wkv_case(rng, 1, 128, 2, 32, cuda, logw=-12.0)
+    y, s = wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_r, s_r = wkv_ref(r, k, v, lw, u, s0)
+    assert _wkv_err(y, y_r) <= WKV_RTOL and _wkv_err(s, s_r) <= WKV_RTOL
+
+
+def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(31)
+    r, k, v, lw, u, s0 = _wkv_case(rng, 1, 4, 2, 64, cuda)
+    with pytest.raises(ValueError):                          # head size 16
+        wkv(*(a[..., :16] for a in (r, k, v, lw)), u[:, :16],
+            s0[:, :, :16, :16].contiguous())
+    with pytest.raises(ValueError):                          # fp16 inputs
+        wkv(r.half(), k.half(), v.half(), lw, u, s0)
+    with pytest.raises(ValueError):                          # bf16 logw
+        wkv(r, k, v, lw.bfloat16(), u, s0)
+    with pytest.raises(ValueError):                          # not contiguous
+        wkv(r, k, v, lw, u, s0.transpose(2, 3))
+    with pytest.raises(ValueError):                          # CPU state
+        wkv(r, k, v, lw, u, s0.cpu())

@@ -141,3 +141,29 @@ def test_launcher_refuses_zero_decode_engines():
     with pytest.raises(ValueError, match="decode"):
         serve.main(["--smoke", "--device", "cpu", "--requests", "2",
                     "--decode-engines", "0", "--rate-matcher", "none"])
+
+
+def test_launcher_serves_rwkv_smoke_on_cpu():
+    """``--arch rwkv6-1.6b --smoke``: disaggregated, dense engines, each
+    request's whole recurrent state handed over (2 layers x (s: 2 heads x
+    32 x 32 fp32 + tm_x, cm_x: 64 bf16 each) = 16,896 bytes)."""
+    rec = _serve("--arch", "rwkv6-1.6b", "--requests", "4", "--isl", "32",
+                 "--osl", "6", "--rate-matcher", "none")
+    assert rec["completed"] == 4 and rec["arch"] == "rwkv6-1.6b-smoke"
+    assert rec["mode"] == "disagg" and rec["prefills"] == 4
+    assert rec["transfers"] == 4
+    assert rec["transferred_MB"] * 2**20 == 4 * 16_896
+
+
+@pytest.mark.parametrize("flags", [
+    ("--mode", "coloc"),
+    ("--scheduler", "prefix-affinity"),
+])
+def test_launcher_refuses_chunked_prefill_for_rwkv(flags, capsys):
+    """RWKV prompts are never chunked: co-located piggybacking and the
+    prefix cache are refused at start-up, with the reason."""
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
+                    *flags])
+    assert "never chunked" in capsys.readouterr().err

@@ -27,14 +27,18 @@ import repro.kernels.flash_attention.ops as jax_flash_ops
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke
 from repro.models import layers as JL
+from repro.models import rwkv6 as JR
 from repro.models import transformer as JT
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import from_reference
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
+from repro_torch.models.config import MoEConfig
 
 TOL = 1e-4
 Bs = 8
+ARCHS = ("qwen2.5-3b", "rwkv6-1.6b")
 
 
 @pytest.fixture
@@ -83,19 +87,24 @@ def _close(got, want, what):
 
 @pytest.mark.parametrize("full", [False, True])
 def test_config_mirror_matches_reference(full):
-    jcfg = (jax_get_config if full else jax_get_smoke)("qwen2.5-3b")
-    cfg = (get_config if full else get_smoke_config)("qwen2.5-3b")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    for prop in ("dh", "q_group", "padded_heads", "padded_kv_heads",
-                 "padded_vocab", "can_group_decode", "is_attention_free",
-                 "sub_quadratic"):
-        assert getattr(cfg, prop) == getattr(jcfg, prop), prop
-    for fn in ("param_count", "active_param_count", "kv_bytes_per_token"):
-        assert getattr(cfg, fn)() == getattr(jcfg, fn)(), fn
-    assert cfg.tdtype == torch.bfloat16
+    for arch in ARCHS:
+        jcfg = (jax_get_config if full else jax_get_smoke)(arch)
+        cfg = (get_config if full else get_smoke_config)(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), arch
+        for prop in ("dh", "q_group", "padded_heads", "padded_kv_heads",
+                     "padded_vocab", "can_group_decode", "is_attention_free",
+                     "sub_quadratic"):
+            assert getattr(cfg, prop) == getattr(jcfg, prop), (arch, prop)
+        for fn in ("param_count", "active_param_count",
+                   "kv_bytes_per_token"):
+            assert getattr(cfg, fn)() == getattr(jcfg, fn)(), (arch, fn)
+        assert cfg.tdtype == torch.bfloat16
     if full:        # the figures the port's docs quote
-        assert cfg.kv_bytes_per_token() == 36_864
-        assert round(cfg.param_count() / 1e9, 2) == 3.40
+        qwen, rwkv = get_config("qwen2.5-3b"), get_config("rwkv6-1.6b")
+        assert qwen.kv_bytes_per_token() == 36_864
+        assert round(qwen.param_count() / 1e9, 2) == 3.40
+        assert (rwkv.num_layers, rwkv.d_model, rwkv.num_heads, rwkv.dh,
+                rwkv.d_ff, rwkv.vocab_size) == (24, 2048, 32, 64, 7168, 65536)
 
 
 def test_layers_match_reference():
@@ -409,7 +418,8 @@ def test_bf16_logits_are_float32():
 @pytest.mark.parametrize("change,slice_name", [
     ({"kv_quant": True}, "kv-quant / sliding-window slice"),
     ({"sliding_window": 16}, "kv-quant / sliding-window slice"),
-    ({"block": "rwkv"}, "RWKV-6 slice"),
+    ({"moe": MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)},
+     "MoE slice"),
     ({"block": "hybrid"}, "hybrid slice"),
 ])
 def test_unported_configs_name_their_slice(change, slice_name):
@@ -418,3 +428,178 @@ def test_unported_configs_name_their_slice(change, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         T.init_cache(cfg, 1, 8, device="cpu")
     assert T.unported(get_smoke_config("qwen2.5-3b")) is None
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 (the WKV kernel's family)
+#
+# The reference initialises w_lora_b to 0 and ln_x to 1, so at init the decay
+# is a constant and the group norm's scale is 1: a fault in either could not
+# show. Every RWKV parity test draws both with numpy and gives the same
+# arrays to both packages. In bfloat16 the two frameworks round at other
+# places (matmul outputs, the shift difference, tanh), and over 2 layers and
+# the LM head that moves the logits by up to ~3% of their scale: the bf16 tests
+# hold logits and state to 5e-2 of their scale.
+
+BF16_TOL = 5e-2
+
+
+def _rwkv_params(dtype: str):
+    jcfg = jax_get_smoke("rwkv6-1.6b").replace(dtype=dtype)
+    cfg = get_smoke_config("rwkv6-1.6b").replace(dtype=dtype)
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(3))
+    rng = np.random.default_rng(4)
+    blocks = dict(jp["blocks"])
+    wb = blocks["w_lora_b"]
+    blocks["w_lora_b"] = jnp.asarray(
+        rng.standard_normal(wb.shape) * 0.3, jnp.float32).astype(wb.dtype)
+    lx = blocks["ln_x"]
+    blocks["ln_x"] = jnp.asarray(1.0 + 0.3 * rng.standard_normal(lx.shape),
+                                 jnp.float32)
+    jp = dict(jp, blocks=blocks)
+    return jcfg, cfg, jp, from_reference(jax.tree.map(np.asarray, jp),
+                                         device="cpu")
+
+
+def _close_tol(got, want, tol, what):
+    got = _np(got.float() if torch.is_tensor(got) else got).astype(np.float32)
+    want = np.asarray(want).astype(np.float32)
+    scale = max(float(np.abs(want).max()), 1.0)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"{what}: max abs err {err} (scale {scale})"
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[1]
+
+
+@pytest.mark.parametrize("jax_impl", ["xla", "pallas"])
+def test_rwkv_block_matches_reference(jax_impl):
+    """``rwkv_block`` and ``rwkv_block_step`` (both impls) against the
+    reference's block (chunked jnp, or the Pallas kernel in interpret
+    mode) and its step, from a nonzero state, with a nonzero decay LoRA and
+    a non-unit group-norm scale: the counterpart of
+    ``test_rwkv_block_pallas_matches_xla``. float32: 1e-4 of the scale."""
+    jcfg, cfg, jp, tp = _rwkv_params("float32")
+    B, S, D, H = 2, 21, cfg.d_model, cfg.num_heads
+    N = D // H
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    x1 = rng.standard_normal((B, 1, D)).astype(np.float32)
+    st = {"s": (rng.standard_normal((B, H, N, N)) * 0.1).astype(np.float32),
+          "tm_x": rng.standard_normal((B, D)).astype(np.float32),
+          "cm_x": rng.standard_normal((B, D)).astype(np.float32)}
+    jpl = {k: v[1] for k, v in jp["blocks"].items()}
+    jy, jst = JR.rwkv_block(jpl, jnp.asarray(x),
+                            {k: jnp.asarray(v) for k, v in st.items()}, jcfg,
+                            impl=jax_impl, interpret=True)
+    jy1, jst1 = JR.rwkv_block_step(jpl, jnp.asarray(x1), jst, jcfg)
+    for impl in ("kernel", "plain"):
+        tst = {k: torch.from_numpy(v.copy()) for k, v in st.items()}
+        s_before = tst["s"]
+        ty, tst = R.rwkv_block(tp["blocks"][1], torch.from_numpy(x), tst,
+                               cfg, impl=impl)
+        assert tst["s"] is s_before                 # updated in place
+        _close(ty, jy, f"block ({impl})")
+        for k in st:
+            _close(tst[k], jst[k], f"block state {k} ({impl})")
+        ty1, tst = R.rwkv_block_step(tp["blocks"][1], torch.from_numpy(x1),
+                                     tst, cfg, impl=impl)
+        _close(ty1, jy1, f"step ({impl})")
+        for k in st:
+            _close(tst[k], jst1[k], f"step state {k} ({impl})")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rwkv_prefill_decode_match_reference(dtype):
+    """``prefill_full`` then dense ``decode_step``s on the RWKV smoke
+    config, from converted weights: logits and the per-layer state against
+    the reference at every step, for both impls (float32: 1e-4 of the
+    scale; bfloat16: ``BF16_TOL``)."""
+    jcfg, cfg, jp, tp = _rwkv_params(dtype)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (3, 19))
+    jl, jc = JT.prefill_full(jp, jcfg, {"tokens": jnp.asarray(tokens)},
+                             capacity=64)
+    keys = ("s", "tm_x", "cm_x")
+    tcaches = {}
+    for impl in ("kernel", "plain"):
+        tl, tc = T.prefill_full(tp, cfg, {"tokens": torch.from_numpy(
+            tokens)}, capacity=64, impl=impl)
+        assert tl.dtype == torch.float32 and set(tc) == set(jc)
+        assert tc["s"].dtype == torch.float32
+        assert tc["tm_x"].dtype == cfg.tdtype
+        _close_tol(tl, jl, tol, f"prefill logits ({impl})")
+        for k in keys:
+            _close_tol(tc[k], jc[k], tol, f"prefill {k} ({impl})")
+        assert _np(tc["pos"]).tolist() == [19] * 3
+        tcaches[impl] = tc
+    toks = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for step in range(3):
+        jl, jc = JT.decode_step(jp, jcfg, jc, jnp.asarray(toks))
+        for impl, tc in tcaches.items():
+            s_before = tc["s"]
+            tl, tcaches[impl] = T.decode_step(tp, cfg, tc,
+                                              torch.from_numpy(toks),
+                                              impl=impl)
+            assert tcaches[impl]["s"] is s_before       # updated in place
+            _close_tol(tl, jl, tol, f"step {step} logits ({impl})")
+            for k in keys:
+                _close_tol(tcaches[impl][k], jc[k], tol,
+                           f"step {step} {k} ({impl})")
+            assert _np(tcaches[impl]["pos"]).tolist() == \
+                _np(jc["pos"]).tolist()
+        toks = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+def test_rwkv_init_params_and_cache_match_reference():
+    """Same leaf names, shapes and dtypes as the reference's init (``w0``,
+    ``u`` and ``ln_x`` fp32 in a bf16 config), the reference's constants
+    and scales, and an ``init_cache`` of the reference's layout; the
+    converter keeps each leaf's own dtype."""
+    jcfg, cfg = jax_get_smoke("rwkv6-1.6b"), get_smoke_config("rwkv6-1.6b")
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    p = T.init_params(cfg, 0, device="cpu")
+    conv = from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    assert set(p) == set(jp) == set(conv)
+    assert len(p["blocks"]) == cfg.num_layers
+    assert set(p["blocks"][0]) == set(jp["blocks"])
+    for name, leaf in jp["blocks"].items():
+        for got in (p["blocks"][0][name], conv["blocks"][0][name]):
+            assert tuple(got.shape) == leaf.shape[1:], name
+            assert _dtype_name(got) == leaf.dtype.name, name
+    for name in ("embed", "final_norm", "lm_head"):
+        assert tuple(p[name].shape) == jp[name].shape, name
+    blk = p["blocks"][0]
+    assert blk["w0"].dtype == blk["u"].dtype == blk["ln_x"].dtype == \
+        torch.float32
+    assert torch.equal(blk["w0"], torch.full_like(blk["w0"], -0.6))
+    assert float(blk["w_lora_b"].abs().max()) == 0.0
+    assert float(blk["ln_x"].min()) == float(blk["ln_x"].max()) == 1.0
+    assert 0.0 <= float(blk["mu"].min()) and float(blk["mu"].max()) < 1.0
+    wide = cfg.replace(d_model=256, num_heads=4, num_kv_heads=4, d_ff=896)
+    wblk = T.init_params(wide, 1, device="cpu")["blocks"][0]
+    assert abs(float(wblk["u"].std()) / 0.5 - 1) < 0.05
+    assert abs(float(wblk["wr"].float().std()) * 16 - 1) < 0.05
+    jc = JT.init_cache(jcfg, 3, 20)
+    tc = T.init_cache(cfg, 3, 20, device="cpu")
+    assert set(tc) == set(jc) == {"s", "tm_x", "cm_x", "pos"}
+    for key, leaf in jc.items():
+        assert tuple(tc[key].shape) == leaf.shape, key
+        assert _dtype_name(tc[key]) == leaf.dtype.name, key
+        assert float(tc[key].abs().max()) == 0.0
+
+
+def test_rwkv_refuses_chunked_prefill_and_paging():
+    """RWKV prefill is never chunked (the reference asserts it) and its
+    O(1) state has no paged layout."""
+    cfg = get_smoke_config("rwkv6-1.6b")
+    p = T.init_params(cfg, 0, device="cpu")
+    tokens = torch.zeros((1, 16), dtype=torch.long)
+    assert not T.supports_paged(cfg) and T.unported(cfg) is None
+    with pytest.raises(ValueError, match="chunked prefill"):
+        T.prefill_chunked(p, cfg, {"tokens": tokens}, 8)
+    with pytest.raises(ValueError, match="chunked prefill"):
+        T.prefill_chunked_paged(p, cfg, {"tokens": tokens}, 8, {}, None)
+    with pytest.raises(ValueError, match="paged layout"):
+        T.decode_step_paged(p, cfg, {}, None, None, tokens[:, 0])

@@ -3,8 +3,9 @@
 gives every request the same greedy token stream — disaggregated (paged
 KV handoff, continuous batching, and the dense layout), co-located
 (chunked prefill with decode piggybacked between chunks) and
-prefix-affine over multi-turn sessions; the block pools account for every
-block afterwards; the handoff payloads have the reference's sizes.
+prefix-affine over multi-turn sessions, and the attention-free RWKV-6
+family with its recurrent state handed over; the block pools account for
+every block afterwards; the handoff payloads have the reference's sizes.
 
 Equality of token streams is exact: greedy argmax over float32 logits that
 agree to ~1e-6 (``tests/test_torch_model.py``) and are nowhere near a tie
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_get_smoke
+from repro.models.config import ModelConfig as JModelConfig
 from repro.models import transformer as JT
 from repro.serving.cluster import Cluster as JCluster
 from repro.serving.elastic import ElasticConfig as JElasticConfig
@@ -31,6 +33,7 @@ from repro.serving.policies import \
 from repro.workloads import Burst as JBurst
 from repro.workloads import FixedShape as JFixedShape
 from repro.workloads import OpenLoopWorkload as JOpenLoopWorkload
+from repro.workloads import Poisson as JPoisson
 from repro.workloads import SessionWorkload as JSessionWorkload
 from repro.workloads import StaticWorkload as JStaticWorkload
 from repro.workloads import materialize as jmaterialize
@@ -38,6 +41,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import from_reference
 from repro_torch.core.hardware import get_chip
 from repro_torch.device import resolve_device
+from repro_torch.models.config import MoEConfig, ModelConfig
 from repro_torch.serving.backends import init_torch_params, make_engine
 from repro_torch.serving.blocks import BlockPoolExhausted
 from repro_torch.serving.cluster import Cluster, kv_bytes
@@ -48,7 +52,7 @@ from repro_torch.serving.policies import (ChunkedPiggybackScheduler,
                                           PrefixAffinityScheduler)
 from repro_torch.serving.request import Request
 from repro_torch.workloads import (Burst, FixedShape, OpenLoopWorkload,
-                                   SessionWorkload, StaticWorkload,
+                                   Poisson, SessionWorkload, StaticWorkload,
                                    materialize)
 
 ISL, OSL, N_REQ, SLOTS = 24, 6, 6, 2
@@ -170,13 +174,14 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
     with pytest.raises(ValueError, match="capacity"):
         eng.prefill_chunked(np.arange(250) % 100, 24)  # pads to 264 > 256
     # what is still unported names the slice that brings it
+    moe = {"moe": MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)}
     for change, slice_name in (({"kv_quant": True}, "kv-quant"),
                                ({"sliding_window": 8}, "sliding-window"),
-                               ({"block": "rwkv"}, "RWKV-6 slice")):
+                               (moe, "MoE slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             Engine(4, cfg.replace(**change), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="RWKV-6 slice"):
-        Engine(4, cfg.replace(block="rwkv"), tp, paged=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        Engine(4, cfg.replace(**moe), tp, paged=False, device="cpu")
     eng.fail()
     with pytest.raises(Exception, match="down"):
         eng.prefill(np.arange(4))
@@ -434,3 +439,123 @@ def test_mixed_layout_handoff_rejected(weights):
     with pytest.raises(TypeError, match="mixed-layout"):
         dense.insert(Request(rid=1, prompt=prompt, osl=2), pc)
     assert paged.has_free_slot() and dense.has_free_slot()
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6: disaggregated serving hands over an O(1) recurrent state
+
+# the configuration of tests/test_serving.py::test_rwkv_family_serves
+RWKV_KW = dict(name="rwkv-serve", family="ssm", block="rwkv", num_layers=2,
+               d_model=64, num_heads=2, num_kv_heads=2, d_ff=128,
+               vocab_size=97, remat=False, logits_chunk=32, dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def rwkv_weights():
+    jcfg, cfg = JModelConfig(**RWKV_KW), ModelConfig(**RWKV_KW)
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(1))
+    return jcfg, cfg, jp, from_reference(jax.tree.map(np.asarray, jp),
+                                         device="cpu")
+
+
+def _rwkv_requests(jax_side: bool):
+    mk = (lambda: jmaterialize(JOpenLoopWorkload(
+        JPoisson(100.0), JFixedShape(12, 5), vocab=97, seed=8,
+        max_requests=4, horizon_s=5.0))) if jax_side else (
+        lambda: materialize(OpenLoopWorkload(
+            Poisson(100.0), FixedShape(12, 5), vocab=97, seed=8,
+            max_requests=4, horizon_s=5.0)))
+    return mk()
+
+
+def test_rwkv_family_serves_matches_reference(rwkv_weights):
+    """The reference's RWKV serve (1 prefill + 1 dense decode engine, 4
+    slots, the state handed over): the same greedy streams on the same
+    float32 weights, and the same transferred bytes — per request the
+    whole state, s in fp32 plus the two shift rows."""
+    jcfg, cfg, jp, tp = rwkv_weights
+    jreqs, treqs = _rwkv_requests(True), _rwkv_requests(False)
+    jeng = [JEngine(i, jcfg, jp, slots=4, capacity=48) for i in (0, 1)]
+    jcl = JCluster({"prefill": jeng[:1], "decode": jeng[1:]})
+    assert jcl.serve(JStaticWorkload(jreqs))["completed"] == 4
+    teng = [Engine(i, cfg, tp, slots=4, capacity=48, device="cpu")
+            for i in (0, 1)]
+    assert not any(e.paged for e in teng)
+    tcl = Cluster({"prefill": teng[:1], "decode": teng[1:]})
+    assert tcl.serve(StaticWorkload(treqs))["completed"] == 4
+    assert _streams(treqs) == _streams(jreqs)
+    assert all(len(r.output) == 5 for r in treqs)
+    H, N, D = cfg.num_heads, cfg.dh, cfg.d_model
+    per_req = cfg.num_layers * (H * N * N * 4 + 2 * D * 4)
+    assert tcl.stats.transfers == jcl.stats.transfers == 4
+    assert tcl.stats.transferred_bytes == jcl.stats.transferred_bytes \
+        == 4 * per_req
+
+
+def test_rwkv_engine_is_dense_without_prefix_cache(rwkv_weights):
+    """An RWKV engine defaults to the dense layout, refuses the paged one
+    and chunked prefill (as the reference does), and builds no prefix
+    cache even when given a chunk size."""
+    _, cfg, _, tp = rwkv_weights
+    eng = Engine(0, cfg, tp, slots=2, capacity=32, chunk_size=8,
+                 device="cpu")
+    assert not eng.paged and eng.prefix_cache is None
+    assert set(eng.cache) == {"s", "tm_x", "cm_x", "pos"}
+    assert make_engine("torch", 1, cfg, tp, device="cpu").paged is False
+    with pytest.raises(ValueError, match="paged"):
+        Engine(2, cfg, tp, paged=True, device="cpu")
+    with pytest.raises(ValueError, match="chunked prefill"):
+        eng.prefill_chunked(np.arange(16, dtype=np.int32), 8)
+    assert eng.prefills == 0 and eng.has_free_slot()
+
+
+def test_rwkv_insert_copies_the_whole_state(rwkv_weights):
+    """``insert`` writes every entry of the handoff state into its slot
+    (s, tm_x, cm_x), not only K/V, and leaves the other slot alone."""
+    _, cfg, _, tp = rwkv_weights
+    pre = Engine(0, cfg, tp, slots=1, capacity=32, device="cpu")
+    dec = Engine(1, cfg, tp, slots=2, capacity=32, device="cpu")
+    _, payload = pre.prefill(np.arange(1, 14, dtype=np.int32))
+    before = {k: v.clone() for k, v in dec.cache.items()}
+    slot = dec.insert(Request(rid=0, prompt=np.arange(13), osl=2), payload)
+    for key in ("s", "tm_x", "cm_x"):
+        assert float(payload[key].abs().max()) > 0.0, key
+        assert torch.equal(dec.cache[key][:, slot], payload[key][:, 0]), key
+        assert torch.equal(dec.cache[key][:, 1 - slot],
+                           before[key][:, 1 - slot]), key
+    assert int(dec.cache["pos"][slot]) == 13
+    assert kv_bytes(payload) == cfg.num_layers * (
+        cfg.num_heads * cfg.dh ** 2 * 4 + 2 * cfg.d_model * 4)
+
+
+def test_rwkv_reused_slot_reproduces_a_fresh_stream(rwkv_weights):
+    """A decode step advances every slot's state, inactive ones too; a slot
+    reused after an eviction still reproduces the stream a fresh engine
+    gives, because ``insert`` overwrites the whole state."""
+    _, cfg, _, tp = rwkv_weights
+    rng = np.random.default_rng(12)
+    a, b, c = (rng.integers(0, cfg.vocab_size, 11).astype(np.int32)
+               for _ in range(3))
+
+    def stream(eng, prompt, n, others=()):
+        """Prefill on a separate engine, insert, decode n tokens (with the
+        ``others`` slots decoding alongside), evict."""
+        tok, payload = pre.prefill(prompt)
+        slot = eng.insert(Request(rid=0, prompt=prompt, osl=n), payload)
+        out, toks = [tok], {slot: tok, **dict(others)}
+        for _ in range(n - 1):
+            toks = eng.decode_step(toks)
+            out.append(toks[slot])
+        eng.evict(slot)
+        return out, slot
+
+    pre = Engine(0, cfg, tp, slots=1, capacity=32, device="cpu")
+    fresh, _ = stream(Engine(1, cfg, tp, slots=2, capacity=32,
+                             device="cpu"), c, 6)
+    eng = Engine(2, cfg, tp, slots=2, capacity=32, device="cpu")
+    tok_b, pay_b = pre.prefill(b)
+    slot_b = eng.insert(Request(rid=1, prompt=b, osl=9), pay_b)
+    _, slot_a = stream(eng, a, 7, others={slot_b: tok_b})
+    reused, slot_c = stream(eng, c, 6, others={slot_b: tok_b})
+    assert slot_c == slot_a                     # the evicted slot, reused
+    assert reused == fresh
