@@ -14,10 +14,12 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      shapes (16 or 64 query rows at an offset), the paged kernel also
      against poisoned trash/tail blocks, the dense decode kernel against
      poisoned rows at and past each length; then timed with CUDA events
-     over runs that cycle through more inputs than the L2 holds, beside
-     the plain version, the library call where PyTorch has one, and the
-     bound computed from the shapes — at the main path's shapes and at one
-     larger shape; the WKV kernel (RWKV-6) against its sequential oracle
+     over runs that cycle through more inputs than the L2 holds, and by
+     the profiler's device time (the paged kernel's split and merge
+     kernels apart), beside the plain version, the library call where
+     PyTorch has one (its device time too), and the bound computed from
+     the shapes — at the main path's shapes and at one larger shape; the
+     WKV kernel (RWKV-6) against its sequential oracle
      at rwkv6-1.6b's prefill (S=512, also a ragged S=500 and a near-total
      decay) and decode shapes, from a nonzero state, then timed beside its
      plain chunked version (no PyTorch call computes the recurrence);
@@ -140,22 +142,39 @@ class Timer:
         per_call.sort()
         return per_call[len(per_call) // 2]
 
-    def device(self, fn, cases) -> float:
+    def device(self, fn, cases):
         """The device time of the kernels one call launches (their sum, per
-        call), from ``torch.profiler`` over one pass through the cases."""
+        call), from ``torch.profiler`` over one pass through the cases;
+        None where the profiler saw none."""
+        parts = self.device_by_kernel(fn, cases)
+        return sum(parts.values()) if parts else None
+
+    def device_by_kernel(self, fn, cases, tries: int = 3) -> dict:
+        """Each kernel's device time per call, by the profiler's kernel
+        name, over one pass through the cases. The profiler now and then
+        reports no device activity for a pass: such a pass is repeated,
+        and after ``tries`` empty ones the result is {} (not measured)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         for case in cases:                      # warm-up
             fn(*case)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for case in cases:
-                fn(*case)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / len(cases)
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for case in cases:
+                    fn(*case)
+                torch.cuda.synchronize()
+            by_name = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    by_name[e.name] = (by_name.get(e.name, 0.0)
+                                       + e.time_range.elapsed_us() / 1e3
+                                       / len(cases))
+            if by_name:
+                return by_name
+        return {}
 
 
 def copies(nbytes: float) -> int:
@@ -639,10 +658,13 @@ def main() -> None:
     # 3a) flash attention: main path shapes, ragged, q_offset
     t0 = time.perf_counter()
     fl_err = 0.0
+    # the last two: the longer shape timed below, and a ragged B=2 one
     for (B, Sq, Skv, H, Hkv, off) in [(1, 512, 512, 16, 2, 0),
                                        (1, 509, 509, 16, 2, 0),
                                        (1, 128, 512, 16, 2, 384),
-                                       (2, 96, 96, 16, 2, 0)]:
+                                       (2, 96, 96, 16, 2, 0),
+                                       (1, 4096, 4096, 16, 2, 0),
+                                       (2, 1100, 1177, 16, 2, 77)]:
         q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev)
         out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
         torch.cuda.synchronize()
@@ -666,14 +688,18 @@ def main() -> None:
         flops, nbytes = flash_work(1, S, S, 16, 2, 0)
         cases = [flash_case(torch, gen, 1, S, S, 16, 2, dev)
                  for _ in range(copies(nbytes))]
+        lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
         res = {
             "ms": timer(fl_ops.flash_attention, cases),
             "device_ms": timer.device(fl_ops.flash_attention, cases),
             "plain_ms": timer(flash_attention_ref, cases, runs=3),
-            "library_ms": timer(
-                lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True),
-                [tuple(x.transpose(1, 2) for x in c) for c in cases]),
+            "library_ms": timer(sdpa, lib_cases),
+            "library_device_ms": timer.device(sdpa, lib_cases),
         }
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
         log(f"# flash time S={S} H=16 Hkv=2 ({len(cases)} input sets): "
@@ -712,9 +738,16 @@ def main() -> None:
         cases = [first] + [paged_case(torch, gen, lengths, 8, 16, 2, dev, nb)
                            for _ in range(copies(nbytes) - 1)]
         tbl = first[3]
+        parts = timer.device_by_kernel(dec_ops.decode_attention_paged, cases)
         res = {
             "ms": timer(dec_ops.decode_attention_paged, cases),
-            "device_ms": timer.device(dec_ops.decode_attention_paged, cases),
+            "device_ms": sum(parts.values()) if parts else None,
+            "split_device_ms": sum(t for name, t in parts.items()
+                                   if "paged_decode_kernel" in name)
+            if parts else None,
+            "merge_device_ms": sum(t for name, t in parts.items()
+                                   if "split_merge_kernel" in name)
+            if parts else None,
             "plain_ms": timer(dec_ops.decode_attention_paged_plain, cases,
                               runs=3),
             "library_ms": None,     # PyTorch has no paged attention call
@@ -723,7 +756,8 @@ def main() -> None:
             lengths, len(lengths), tbl.shape[1], 16, 2))
         log(f"# paged time B={len(lengths)} max_len={max(lengths)} "
             f"nb={tbl.shape[1]} ({len(cases)} input sets): "
-            + json.dumps(res))
+            + json.dumps(res) + "; device ms by kernel: "
+            + json.dumps({name[:50]: t for name, t in parts.items()}))
         return res
 
     # the serve phase's decode step: 8 slots midway through 64 new tokens
@@ -753,15 +787,22 @@ def main() -> None:
                  for _ in range(copies(nbytes))]
         mask = (torch.arange(Skv, device=dev)[None, :]
                 <= off + torch.arange(Sq, device=dev)[:, None])
+        lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
+
+        def kernel(q, k, v, off=off):
+            return fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+
+        def sdpa(q, k, v, mask=mask):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
         res = {"Sq": Sq, "q_offset": off, "Skv": Skv, "max_abs_err": err,
-               "ms": timer(lambda q, k, v: fl_ops.flash_attention(
-                   q, k, v, causal=True, q_offset=off), cases),
+               "ms": timer(kernel, cases),
+               "device_ms": timer.device(kernel, cases),
                "plain_ms": timer(lambda q, k, v: flash_attention_ref(
                    q, k, v, causal=True, q_offset=off), cases, runs=3),
-               "library_ms": timer(
-                   lambda q, k, v: F.scaled_dot_product_attention(
-                       q, k, v, attn_mask=mask, enable_gqa=True),
-                   [tuple(x.transpose(1, 2) for x in c) for c in cases])}
+               "library_ms": timer(sdpa, lib_cases),
+               "library_device_ms": timer.device(sdpa, lib_cases)}
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
         log("# flash chunk time: " + json.dumps(res))
         chunk_rows.append(res)
@@ -809,7 +850,8 @@ def main() -> None:
         res = {"ms": timer(dec_ops.decode_attention, cases),
                "device_ms": timer.device(dec_ops.decode_attention, cases),
                "plain_ms": timer(decode_attention_ref, cases, runs=3),
-               "library_ms": timer(sdpa, cases)}
+               "library_ms": timer(sdpa, cases),
+               "library_device_ms": timer.device(sdpa, cases)}
         res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, 16,
                                                              2))
         log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} "

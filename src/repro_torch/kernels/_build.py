@@ -13,6 +13,11 @@ Each C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; ``check`` raises when
 that is not 0 (a refused launch never runs, and a later synchronize would
 not report it).
+
+Nothing links ``-lcuda``: the flash kernel's TMA tensor maps are encoded
+by ``cuTensorMapEncodeTiled`` of the CUDA driver API, which the source
+reaches at run time through the runtime's ``cudaGetDriverEntryPoint``
+(it includes ``cuda.h`` for the types only).
 """
 from __future__ import annotations
 

@@ -185,9 +185,9 @@ extern "C" int dense_decode_fwd(const void* q, const void* k_cache,
       n_splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  split_merge_kernel<<<dim3(Hkv, B), NTHREADS, 0, st>>>(
+  split_merge_kernel<<<dim3(G, Hkv, B), NTHREADS, 0, st>>>(
       static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), static_cast<__nv_bfloat16*>(out), G,
+      static_cast<const float*>(l_part), static_cast<__nv_bfloat16*>(out),
       n_splits);
   return int(cudaGetLastError());
 }

@@ -25,7 +25,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_partials_ref)
 
-SPLIT_TOKENS = 128      # tokens one CTA walks (the kernels' TMAX)
+SPLIT_TOKENS = 128      # tokens of a dense split (the kernels' TMAX)
+MIN_SPLIT_TOKENS = 32   # fewest tokens in a paged split
+MAX_SPLIT_TOKENS = 64   # most tokens in a paged split
+TARGET_CTAS = 264       # two CTAs on each of the H100's 132 SMs
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 _DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
@@ -48,11 +51,20 @@ def _dense_lib():
     return lib
 
 
-def pages_per_split(block_size: int) -> int:
-    """Table entries per split: as many blocks as fit in SPLIT_TOKENS."""
+def pages_per_split(B: int, Hkv: int, nb: int, block_size: int) -> int:
+    """Table entries per split of the paged kernel, from the shape: whole
+    pages of at least MIN_SPLIT_TOKENS tokens (one page where a page is
+    larger, up to SPLIT_TOKENS) and at most MAX_SPLIT_TOKENS, the most
+    that still gives ``B * Hkv * n_splits >= TARGET_CTAS`` — fewer,
+    longer splits cut the partials' traffic where the grid is full anyway
+    — or the fewest when the table is too narrow to reach that."""
     if block_size > SPLIT_TOKENS:
         raise ValueError(f"block_size {block_size} > {SPLIT_TOKENS}")
-    return SPLIT_TOKENS // block_size
+    lo = -(-MIN_SPLIT_TOKENS // block_size)
+    for pps in range(max(lo, MAX_SPLIT_TOKENS // block_size), lo, -1):
+        if B * Hkv * -(-nb // pps) >= TARGET_CTAS:
+            return pps
+    return lo
 
 
 def _merge_splits(o, m, l):
@@ -106,7 +118,7 @@ def _kernel(qg, pool_k, pool_v, tables, lengths):
                          f"{tuple(pool_k.shape)}/{tuple(pool_v.shape)}, "
                          f"tables {tuple(tables.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not fit together")
-    pps = pages_per_split(Bs)
+    pps = pages_per_split(B, Hkv, nb, Bs)
     S = -(-nb // pps)
     dev = qg.device
     o, m, l, out = _partials(qg, S)
@@ -150,7 +162,8 @@ def decode_attention_paged_plain(q, pool_k, pool_v, tables, lengths):
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
     o, m, l = paged_decode_partials_ref(
         q.reshape(B, Hkv, H // Hkv, dh), pool_k, pool_v, tables, lengths,
-        pages_per_split=pages_per_split(pool_k.shape[1]))
+        pages_per_split=pages_per_split(B, Hkv, tables.shape[1],
+                                        pool_k.shape[1]))
     return _merge_splits(o, m, l).reshape(B, H, dh).to(q.dtype)
 
 

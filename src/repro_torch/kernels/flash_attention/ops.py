@@ -16,6 +16,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+# query heads per KV head the kernel packs into its 64-row tiles
+KERNEL_GROUPS = (1, 2, 4, 8, 16)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
@@ -44,7 +46,9 @@ def _check_inputs(q, k, v):
 def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Causal (or full) GQA attention. q: [B,Sq,H,dh]; k, v:
     [B,Skv,Hkv,dh] un-expanded (the kernel maps q head h to KV head
-    h // (H/Hkv)). Returns [B,Sq,H,dh] in q.dtype."""
+    h // (H/Hkv), and packs the H/Hkv heads of a group into its rows, so
+    it takes H/Hkv in KERNEL_GROUPS and dh = 128). Returns [B,Sq,H,dh] in
+    q.dtype."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -58,6 +62,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     Skv, Hkv = k.shape[1], k.shape[2]
     if dh != 128:
         raise ValueError(f"flash_attention kernel: head dim {dh} != 128")
+    if H // Hkv not in KERNEL_GROUPS:
+        raise ValueError(f"flash_attention kernel: {H // Hkv} query heads per "
+                         f"KV head, not one of {KERNEL_GROUPS}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     o = torch.empty_like(q)

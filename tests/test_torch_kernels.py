@@ -268,11 +268,60 @@ def test_merge_splits_matches_jax_on_random_partials():
                                rtol=TOL)
 
 
-def test_pages_per_split_covers_split_tokens():
-    assert dec_ops.pages_per_split(8) == 16
-    assert dec_ops.pages_per_split(128) == 1
+@pytest.mark.parametrize("B,Hkv,nb,Bs,want", [
+    (8, 2, 73, 8, 4),        # the serve's decode step: 19 splits, 304 CTAs
+    (32, 2, 512, 8, 8),      # B=32 x 4096: 64-token splits, 4,096 CTAs
+    (1, 2, 64, 8, 4),        # narrow grid: the fewest tokens, 16 splits
+    (140, 2, 4, 8, 8),       # wide batch: 64-token splits are enough
+    (4, 2, 3, 64, 1),        # a page of 64 is already >= 32 tokens
+    (2, 4, 1, 128, 1),       # one page of 128, more than the 64 cap
+    (3, 1, 40, 16, 2),
+])
+def test_pages_per_split_covers_split_tokens(B, Hkv, nb, Bs, want):
+    """Whole pages, at least 32 tokens (or one page), at most 64 (or one
+    page), the table covered, and 264 CTAs reached wherever the table
+    allows."""
+    pps = dec_ops.pages_per_split(B, Hkv, nb, Bs)
+    assert pps == want
+    T = pps * Bs
+    n_splits = -(-nb // pps)
+    assert T <= max(dec_ops.MAX_SPLIT_TOKENS, Bs) and n_splits * pps >= nb
+    assert T >= dec_ops.MIN_SPLIT_TOKENS or pps == 1
+    lo = -(-dec_ops.MIN_SPLIT_TOKENS // Bs)
+    if B * Hkv * -(-nb // lo) >= dec_ops.TARGET_CTAS:
+        assert B * Hkv * n_splits >= dec_ops.TARGET_CTAS
     with pytest.raises(ValueError):
-        dec_ops.pages_per_split(256)
+        dec_ops.pages_per_split(B, Hkv, nb, 256)
+
+
+@pytest.mark.parametrize("B,Hkv,G,Bs,lengths,splits", [
+    (1, 2, 4, 8, (250,), 8),                    # small batch, many splits
+    (136, 2, 2, 32, [1 + (7 * b) % 32 for b in range(136)], 1),  # one split
+])
+def test_paged_split_rule_merges_to_jax(B, Hkv, G, Bs, lengths, splits):
+    """The plain partials under the shape's split rule, merged, give the
+    JAX package's paged decode (Pallas kernel in interpret mode)."""
+    rng = np.random.default_rng(21)
+    dh = 64
+    q = rng.standard_normal((B, Hkv * G, dh)).astype(np.float32)
+    N = 1 + sum(-(-n // Bs) for n in lengths)
+    pool_k, pool_v, tables = _paged_case(rng, B, N, Bs, Hkv, dh, lengths)
+    lens = np.asarray(lengths, np.int32)
+    pps = dec_ops.pages_per_split(B, Hkv, tables.shape[1], Bs)
+    assert -(-tables.shape[1] // pps) == splits
+    o, m, l = paged_decode_partials_ref(
+        _t(q).reshape(B, Hkv, G, dh), _t(pool_k), _t(pool_v), _t(tables),
+        _t(lens), pages_per_split=pps)
+    assert o.shape == (B, Hkv, splits, G, dh)
+    got = dec_ops._merge_splits(o, m, l).reshape(B, Hkv * G, dh)
+    out = dec_ops.decode_attention_paged(_t(q), _t(pool_k), _t(pool_v),
+                                         _t(tables), _t(lens))
+    np.testing.assert_allclose(out.numpy(), got.numpy(), atol=1e-6)
+    pallas = jax_dec_ops.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(pool_k), jnp.asarray(pool_v),
+        jnp.asarray(tables), jnp.asarray(lens), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
 
 
 def test_wrappers_check_shapes():

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.decode_attention.ops import (
-    decode_attention, decode_attention_paged, decode_attention_paged_plain)
+    decode_attention, decode_attention_paged, decode_attention_paged_plain,
+    pages_per_split)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -53,6 +54,22 @@ def _bf16(rng, shape, dev):
     (1, 16, 464, 16, 2, True, 448),     # q_offset not a multiple of 64
     (1, 64, 112, 16, 2, True, 48),
     (1, 64, 512, 16, 2, True, 448),
+    # GQA row packing: every group size the kernel takes, Sq no multiple
+    # of the 64/G positions of a tile, q_offset no multiple of the tile
+    (1, 200, 200, 4, 4, True, 0),       # G = 1
+    (2, 97, 130, 8, 4, True, 33),       # G = 2
+    (1, 45, 300, 8, 2, True, 255),      # G = 4
+    (2, 77, 77, 16, 2, True, 0),        # G = 8, B = 2, ragged Skv
+    (1, 83, 200, 32, 2, True, 117),     # G = 16
+    (2, 130, 70, 16, 2, False, 0),      # non-causal, ragged both ways
+    (1, 1, 449, 16, 2, True, 448),      # chunk shapes Sq = 1, 16, 64
+    (1, 16, 96, 16, 2, True, 80),
+    (1, 64, 1000, 16, 2, True, 936),
+    # long prompts: hundreds of CTAs, two per SM, many K/V tiles each
+    (2, 1100, 1100, 16, 2, True, 0),    # G = 8, ragged
+    (1, 3000, 3077, 32, 2, True, 77),   # G = 16 at an offset
+    (4, 1100, 1100, 8, 8, True, 0),     # G = 1
+    (2, 1500, 1300, 16, 2, False, 0),   # non-causal
 ])
 def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, causal, off):
     rng = np.random.default_rng(3)
@@ -68,12 +85,47 @@ def test_flash_kernel_matches_plain(cuda, B, Sq, Skv, H, Hkv, causal, off):
     assert (out.float() - ref.float()).abs().max().item() <= ATOL
 
 
-def _paged_case(rng, B, N, Bs, Hkv, lengths, dev):
-    """Pool + sequential per-sequence tables; pad columns -> trash block 0
-    (the layout of tests/test_kernels.py)."""
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_never_reads_the_next_sequence(cuda, causal):
+    """B = 2 with Skv no multiple of the 64-key tile: the tile past Skv is
+    zero-filled by TMA, not read from sequence 1. Sequence 1's K/V are
+    NaN, so a single row read across the boundary would show in
+    sequence 0's output."""
+    rng = np.random.default_rng(29)
+    Skv = 100
+    q = _bf16(rng, (2, Skv, 16, 128), cuda)
+    k = _bf16(rng, (2, Skv, 2, 128), cuda)
+    v = _bf16(rng, (2, Skv, 2, 128), cuda)
+    k[1], v[1] = float("nan"), float("nan")
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q[:1], k[:1], v[:1], causal=causal)
+    assert torch.isfinite(out[0]).all()
+    assert (out[:1].float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_flash_kernel_refuses_group_sizes_it_does_not_pack(cuda):
+    """The kernel packs G in {1, 2, 4, 8, 16} heads per KV head into its
+    64-row tiles, and takes dh = 128 only."""
+    q = torch.zeros((1, 8, 6, 128), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # G = 3
+        flash_attention(q, k, k)
+    q32 = torch.zeros((1, 8, 64, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # G = 32
+        flash_attention(q32, k, k)
+    q64 = torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # dh = 64
+        flash_attention(q64, q64[:, :, :2], q64[:, :, :2])
+
+
+def _paged_case(rng, B, N, Bs, Hkv, lengths, dev, nb=None):
+    """Pool + sequential per-sequence tables of ``nb`` columns (default:
+    as many as the longest needs); pad columns -> trash block 0 (the
+    layout of tests/test_kernels.py)."""
     pool_k = _bf16(rng, (N, Bs, Hkv, 128), dev)
     pool_v = _bf16(rng, (N, Bs, Hkv, 128), dev)
-    nb = max(-(-int(n) // Bs) for n in lengths)
+    nb = nb or max(-(-int(n) // Bs) for n in lengths)
     tables = np.zeros((B, nb), np.int32)
     ids = iter(range(1, N))
     for b, n in enumerate(lengths):
@@ -101,6 +153,57 @@ def test_paged_kernel_matches_plain(cuda, B, H, Hkv, Bs, N, lengths):
     assert decode_attention_paged.launches == n0 + 1
     ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
     assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def _split_tokens(B, Hkv, nb, Bs):
+    return pages_per_split(B, Hkv, nb, Bs) * Bs
+
+
+@pytest.mark.parametrize("H", [8, 16, 32])              # G = 4, 8, 16
+@pytest.mark.parametrize("nb", [73, 128])               # the serve's window,
+def test_paged_kernel_split_edges(cuda, H, nb):         # and a wider table
+    """The shape's split (32 tokens at nb = 73, 56 at nb = 128): lengths
+    of 1 token, exactly one split, one token past it, several splits and
+    the whole window, at G = 4, 8 and 16."""
+    rng = np.random.default_rng(23)
+    B, Hkv, Bs = 8, 2, 8
+    T = _split_tokens(B, Hkv, nb, Bs)
+    lengths = (1, T, T + 1, 2 * T - 1, 3 * T + 1, 544, 73 * 8, 9)
+    q = _bf16(rng, (B, H, 128), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, nb=nb)
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("H", [8, 16, 32])
+def test_paged_kernel_poisoned_blocks_at_the_serve_shape(cuda, H):
+    """The trash block and every tail past a length poisoned to +-1e4 (and
+    NaN in the trash block's second half) leave the output bit-unchanged
+    at the serve's geometry: Bs = 8, 32-token splits, G = 4, 8, 16."""
+    rng = np.random.default_rng(31)
+    B, Hkv, Bs, nb = 8, 2, 8, 73
+    lengths = (577, 100, 1, 64, 300, 512, 9, 33)
+    q = _bf16(rng, (B, H, 128), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, nb=nb)
+    out1 = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    pool_k2, pool_v2 = pool_k.clone(), pool_v.clone()
+    pool_k2[0], pool_v2[0] = 1e4, -1e4
+    pool_k2[0, 4:], pool_v2[0, 4:] = float("nan"), float("nan")
+    for b, n in enumerate(lengths):
+        if n % Bs:
+            last = int(tables[b, (n - 1) // Bs])
+            pool_k2[last, n % Bs:] = 77.0
+            pool_v2[last, n % Bs:] = -77.0
+    out2 = decode_attention_paged(q, pool_k2, pool_v2, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out1, out2)
 
 
 def test_paged_kernel_garbage_block_immunity(cuda):
