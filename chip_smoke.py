@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build: every CUDA source of ``src/repro_torch`` with ``nvcc`` (one
-     process per source, all at once), printing ptxas register/smem lines;
+     process per source, all at once), printing each kernel's ptxas
+     register, spill and static shared-memory lines;
   3. kernels: each kernel's wrapper on the card at the main path's shapes,
      held against its plain PyTorch version on the same inputs (bf16 in,
      tolerance stated below) — flash attention also at chunked-prefill
@@ -19,9 +20,13 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      kernels apart), beside the plain version, the library call where
      PyTorch has one (its device time too), and the bound computed from
      the shapes — at the main path's shapes and at one larger shape; the
-     WKV kernel (RWKV-6) against its sequential oracle
-     at rwkv6-1.6b's prefill (S=512, also a ragged S=500 and a near-total
-     decay) and decode shapes, from a nonzero state, then timed beside its
+     dense decode kernel also at the edges of its shape-chosen split (32,
+     48 and 64 rows; lengths 0, 1, at and around split boundaries, Smax),
+     each with the poisoned-row check; the WKV kernel (RWKV-6) against
+     its sequential oracle at rwkv6-1.6b's prefill (S=512, also a ragged
+     S=500 and a near-total decay) and decode shapes, from a nonzero
+     state, and at the edges of its column blocks (N = 32 and 64, bf16
+     and fp32 inputs, B > 1), each also in place, then timed beside its
      plain chunked version (no PyTorch call computes the recurrence);
   4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
      seed 0), prefill and paged decode steps with the kernels, with the
@@ -59,8 +64,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      every handoff carried exactly one request's state (12,779,520 bytes);
  11. profile: one engine of the serve's shape, a prefill and a decode
      step under ``torch.profiler`` (host-clock step time, device time,
-     idle share, the kernels that take the most time), for qwen2.5-3b
-     and for rwkv6-1.6b.
+     idle share, the kernels that take the most time), for qwen2.5-3b in
+     the paged and the dense layout and for rwkv6-1.6b.
 
 Every path (5-8, 10) runs with every kernel's launch count set to 0 just
 before it and read just after; each phase prints its seconds.
@@ -75,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -177,6 +183,36 @@ class Timer:
         return {}
 
 
+def ptxas_entry(line: str) -> str:
+    """The kernel a ptxas "Compiling entry function '_ZN...'" line names:
+    the last name of its mangled nested name, with the template arguments
+    of the WKV kernel (``wkv_kernel<64, bf16>``)."""
+    m = line.split("'")[1]
+    i, name = (3 if m.startswith("_ZN") else 2), m
+    while i < len(m) and m[i].isdigit():
+        j = i
+        while m[j].isdigit():
+            j += 1
+        n = int(m[i:j])
+        name, i = m[j:j + n], j + n
+    targs = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)E", m[i:])
+    if targs:
+        name += f"<{targs.group(1)}, " + (
+            "fp32" if targs.group(2) == "f" else "bf16") + ">"
+    return name
+
+
+def split_and_merge(parts: dict, split_kernel: str) -> dict:
+    """A decode kernel's device time per call from the profiler's parts
+    by kernel name: the total, its split kernel's and the merge's (None,
+    not measured, where the profiler saw none)."""
+    def part(name):
+        return sum(t for k, t in parts.items() if name in k) if parts else None
+    return {"device_ms": sum(parts.values()) if parts else None,
+            "split_device_ms": part(split_kernel),
+            "merge_device_ms": part("split_merge_kernel")}
+
+
 def copies(nbytes: float) -> int:
     """Input sets to cycle through: together at least twice the L2."""
     return max(2, min(64, math.ceil(2 * L2_BYTES / nbytes)))
@@ -252,12 +288,52 @@ def dense_work(lengths, B, H, Hkv):
     return flops, nbytes
 
 
-def wkv_case(torch, gen, B, S, H, N, dev, logw=None):
-    """bf16 r, k, v; fp32 data-dependent logw = -exp(normal - 0.5) (or the
-    given constant), u and a nonzero state, as the model passes them."""
+def dense_split_edges(torch, dev, gen, dec_ops, ref_fn) -> float:
+    """The dense decode kernel at the edges of its split, 32, 48 and 64
+    rows chosen from the shape (``ops.split_tokens``), in a cache of 584
+    rows (no multiple of any of them) and of 100: lengths 0, 1, one short
+    of, at and one past a split boundary, Smax - 1, Smax and past it,
+    against its plain version; then every row at and past each length
+    poisoned (+-1e4, NaN further on in every other sequence) must leave
+    the output bit-unchanged. Returns the largest error."""
+    err_max = 0.0
+    for B, Smax in [(8, 584), (12, 584), (16, 584), (4, 100)]:
+        T = dec_ops.split_tokens(B, 2, Smax)
+        edges = [0, 1, T - 1, T, T + 1, 2 * T, Smax - 1, Smax, Smax + 5,
+                 Smax - T, Smax - T + 1, 3 * T - 1, T // 2, 2 * T + 1, 5,
+                 77]
+        lengths = edges[:B]
+        q, kc, vc, lens = dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+        out = dec_ops.decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - ref_fn(q, kc, vc, lens).float()
+               ).abs().max().item()
+        kc2, vc2 = kc.clone(), vc.clone()
+        for b, n in enumerate(lengths):
+            kc2[b, n:], vc2[b, n:] = 1e4, -1e4
+            if b % 2:
+                kc2[b, n + 3:], vc2[b, n + 3:] = float("nan"), float("nan")
+        same = torch.equal(out, dec_ops.decode_attention(q, kc2, vc2, lens))
+        log(f"# dense split edges B={B} Smax={Smax} split={T} "
+            f"lengths={lengths}: max_abs_err {err:.3e}, poisoned rows "
+            f"{'bit-unchanged' if same else 'LEAKED'}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"dense decode at split {T} disagrees: {err}")
+        if not same:
+            fail(f"dense decode at split {T}: rows at or past a length "
+                 "leaked into the output")
+        err_max = max(err_max, err)
+    return err_max
+
+
+def wkv_case(torch, gen, B, S, H, N, dev, logw=None, in_dtype=None):
+    """bf16 r, k, v (or ``in_dtype``); fp32 data-dependent logw =
+    -exp(normal - 0.5) (or the given constant), u and a nonzero state, as
+    the model passes them."""
     def f32(*shape):
         return torch.randn(shape, generator=gen, device=dev)
-    r, k, v = (f32(B, S, H, N).to(torch.bfloat16) for _ in range(3))
+    r, k, v = (f32(B, S, H, N).to(in_dtype or torch.bfloat16)
+               for _ in range(3))
     lw = (-torch.exp(f32(B, S, H, N) - 0.5) if logw is None
           else torch.full((B, S, H, N), float(logw), device=dev))
     return r, k, v, lw, f32(H, N) * 0.5, f32(B, H, N, N) * 0.1
@@ -272,6 +348,40 @@ def wkv_work(B, S, H, N):
     nbytes = (float(B * S * H * N) * (3 * 2 + 4 + 4) + 4.0 * H * N
               + 2 * 4.0 * B * H * N * N)
     return flops, nbytes
+
+
+def wkv_column_blocks(torch, dev, gen, wkv_ops, wkv_ref) -> float:
+    """The WKV kernel at the edges of its column blocks (16 state columns
+    per CTA, N / 16 blocks per head): N = 32 and 64, bf16 and fp32 r/k/v,
+    B > 1, S of one token, ragged against the 64-token tile and longer
+    than one tile, against the sequential oracle within WKV_RTOL of the
+    output's scale; each then in place (``out_state=state0``), which must
+    equal the out-of-place result bit for bit. Returns the largest
+    error."""
+    err_max = 0.0
+    for B, S, H, N, dt in [(2, 33, 4, 32, torch.bfloat16),
+                           (3, 70, 4, 32, torch.float32),
+                           (2, 130, 8, 64, torch.float32),
+                           (4, 1, 8, 64, torch.float32),
+                           (3, 65, 6, 64, torch.bfloat16)]:
+        case = wkv_case(torch, gen, B, S, H, N, dev, in_dtype=dt)
+        y, s = wkv_ops.wkv(*case)
+        state = case[5].clone()
+        y2, s2 = wkv_ops.wkv(*case[:5], state, out_state=state)
+        torch.cuda.synchronize()
+        y_r, s_r = wkv_ref(*case)
+        err = max((y - y_r).abs().max().item(), (s - s_r).abs().max().item())
+        scale = max(y_r.abs().max().item(), s_r.abs().max().item(), 1.0)
+        same = s2 is state and torch.equal(state, s) and torch.equal(y2, y)
+        log(f"# wkv column blocks B={B} S={S} H={H} N={N} {dt}: "
+            f"max_abs_err {err:.3e} (scale {scale:.3e}); in place "
+            f"{'bit-identical' if same else 'DIFFERS'}")
+        if not (math.isfinite(err) and err <= WKV_RTOL * scale):
+            fail(f"wkv at N={N} {dt} disagrees with its oracle: {err}")
+        if not same:
+            fail(f"wkv at N={N} {dt}: in place differs from out of place")
+        err_max = max(err_max, err)
+    return err_max
 
 
 def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
@@ -305,6 +415,8 @@ def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
     torch.cuda.synchronize()
     if s is not state or not torch.equal(state, wkv_ops.wkv(*case)[1]):
         fail("wkv: the in-place state differs from the out-of-place one")
+    err_max = max(err_max, wkv_column_blocks(torch, dev, gen, wkv_ops,
+                                             wkv_ref))
 
     def time_wkv(B, Sc):
         flops, nbytes = wkv_work(B, Sc, H, N)
@@ -466,22 +578,26 @@ def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
 
 
 def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
-                  steps: int = 8) -> None:
+                  steps: int = 8, paged=None) -> None:
     """Where a step's time goes: one engine of the serve phase's shape
-    prefills ``slots`` prompts into its own slots, then runs decode steps
-    with the host clock and then again under ``torch.profiler``; the same
-    for two prefills. Prints each kind's host-clock step time, the device
-    time of the kernels inside it, the device's idle share and the kernels
-    that take the most time. Reports "not measured" rather than
-    failing if the profiler sees no device activity."""
+    (the given KV layout, or the family's default) prefills ``slots``
+    prompts into its own slots, then runs decode steps with the host
+    clock and then again under ``torch.profiler``; the same for two
+    prefills. Prints each kind's host-clock step time, the device time of
+    the kernels inside it, the device's idle share and the kernels that
+    take the most time. Reports "not measured" rather than failing if the
+    profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hardware import get_chip
     from repro_torch.serving.backends import init_torch_params, make_engine
     params = init_torch_params(cfg, 0, device=dev)
+    layout = {} if paged is None else {"paged": paged}
     eng = make_engine("torch", 0, cfg, params, slots=slots,
-                      capacity=S + 64 + 8, chip=get_chip("h100"), device=dev)
+                      capacity=S + 64 + 8, chip=get_chip("h100"), device=dev,
+                      **layout)
+    name = cfg.name + (" dense" if paged is False else "")
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=gen).numpy()
                for _ in range(slots + 4)]
@@ -531,7 +647,7 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 toks = eng.decode_step(toks)
-        report(f"{cfg.name} decode (B={slots}, context ~{S + 3 + steps})",
+        report(f"{name} decode (B={slots}, context ~{S + 3 + steps})",
                prof, steps, wall)
         t0 = time.perf_counter()
         for p in prompts[slots:slots + 2]:
@@ -541,7 +657,7 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
                                  ProfilerActivity.CUDA]) as prof:
             for p in prompts[slots + 2:]:
                 eng.prefill(p)
-        report(f"{cfg.name} prefill (S={S})", prof, 2, wall)
+        report(f"{name} prefill (S={S})", prof, 2, wall)
     del eng, params
 
 
@@ -646,9 +762,13 @@ def main() -> None:
     libs = _build.build_all()
     log(f"# build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in sorted(_build.build_logs.items()):
+        entry = "?"
         for line in text.splitlines():
-            if "ptxas info" in line and ("Used" in line or "spill" in line):
-                log(f"# ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = ptxas_entry(line)
+            elif "ptxas info" in line and ("Used" in line or "spill" in line):
+                log(f"# ptxas {name} {entry}: "
+                    f"{line.split(':', 1)[1].strip()}")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -741,13 +861,7 @@ def main() -> None:
         parts = timer.device_by_kernel(dec_ops.decode_attention_paged, cases)
         res = {
             "ms": timer(dec_ops.decode_attention_paged, cases),
-            "device_ms": sum(parts.values()) if parts else None,
-            "split_device_ms": sum(t for name, t in parts.items()
-                                   if "paged_decode_kernel" in name)
-            if parts else None,
-            "merge_device_ms": sum(t for name, t in parts.items()
-                                   if "split_merge_kernel" in name)
-            if parts else None,
+            **split_and_merge(parts, "paged_decode_kernel"),
             "plain_ms": timer(dec_ops.decode_attention_paged_plain, cases,
                               runs=3),
             "library_ms": None,     # PyTorch has no paged attention call
@@ -809,8 +923,9 @@ def main() -> None:
     rows["flash"]["chunk_shapes"] = chunk_rows
 
     # 3d) dense decode (kernel 3): the dense engine's capacity 584 (no
-    #     multiple of the 128-row split), mixed lengths including 1 and
-    #     Smax, then rows at and past each length poisoned with +-1e4
+    #     multiple of the split), mixed lengths including 1 and Smax, then
+    #     rows at and past each length poisoned with +-1e4; then the edges
+    #     of the 32-, 48- and 64-row splits
     Smax = 584
     lengths = [1, 584, 100, 128, 129, 300, 512, 9]
     q, kc, vc, lens = dense_case(torch, gen, lengths, Smax, 16, 2, dev)
@@ -832,6 +947,8 @@ def main() -> None:
              f"output ({(out2.float() - out.float()).abs().max().item()})")
     log("# dense length-mask exactness: output unchanged with rows at and "
         "past each length poisoned to +-1e4")
+    dense_err = max(dense_err, dense_split_edges(torch, dev, gen, dec_ops,
+                                                 decode_attention_ref))
 
     def time_dense(lengths, Smax):
         B = len(lengths)
@@ -847,15 +964,17 @@ def main() -> None:
                 q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=keep, enable_gqa=True)
 
+        parts = timer.device_by_kernel(dec_ops.decode_attention, cases)
         res = {"ms": timer(dec_ops.decode_attention, cases),
-               "device_ms": timer.device(dec_ops.decode_attention, cases),
+               **split_and_merge(parts, "dense_decode_kernel"),
                "plain_ms": timer(decode_attention_ref, cases, runs=3),
                "library_ms": timer(sdpa, cases),
                "library_device_ms": timer.device(sdpa, cases)}
         res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, 16,
                                                              2))
-        log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} "
-            f"({len(cases)} input sets): " + json.dumps(res))
+        log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} split="
+            f"{dec_ops.split_tokens(B, 2, Smax)} ({len(cases)} input sets): "
+            + json.dumps(res))
         return res
 
     # the dense serve's decode step: 8 slots midway through 64 new tokens
@@ -989,6 +1108,7 @@ def main() -> None:
     # 11) profile: where a prefill and a decode step spend their time
     t0 = time.perf_counter()
     profile_phase(torch, cfg, dev)
+    profile_phase(torch, cfg, dev, paged=False)
     profile_phase(torch, rwkv, dev)
     log(f"# phase profile: {time.perf_counter() - t0:.1f} s")
 

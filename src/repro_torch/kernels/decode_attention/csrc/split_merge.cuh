@@ -1,5 +1,5 @@
 // Shared by the two split-KV decode kernels of this directory (paged and
-// dense): constants, a bf16 unpack helper, and the cross-split merge.
+// dense): constants and the cross-split merge.
 //
 // Each split kernel writes fp32 online-softmax partials per (sequence, KV
 // head, split): o unnormalised [G, DH], m and l [G]. A dead split writes
@@ -20,16 +20,6 @@ constexpr int GMAX = 16;      // most query heads per KV head
 constexpr int TMAX = 128;     // most tokens per split (K/V rows staged)
 constexpr int NTHREADS = 128; // == DH: one thread per output element
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(h[i]);
-    f[2 * i] = x.x;
-    f[2 * i + 1] = x.y;
-  }
-}
 
 // max (or sum) over the CTA's NTHREADS threads; every thread gets it
 template <bool MAX>

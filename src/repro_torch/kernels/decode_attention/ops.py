@@ -2,8 +2,9 @@
 
 - ``decode_attention`` (dense per-slot cache): on CUDA tensors it launches
   the hand-written kernels of ``csrc/decode_attention.cu`` (split-KV
-  partials, then the shared cross-split merge) or raises; on CPU tensors
-  it runs its plain version, ``ref.decode_attention_ref``.
+  partials over ``split_tokens`` rows each, then the shared cross-split
+  merge) or raises; on CPU tensors it runs its plain version,
+  ``ref.decode_attention_ref``.
 - ``decode_attention_paged`` (block pool): on CUDA tensors it launches
   the kernels of ``csrc/paged_decode.cu`` or raises; on CPU tensors it
   runs the plain version: the same partials from
@@ -25,13 +26,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref, paged_decode_partials_ref)
 
-SPLIT_TOKENS = 128      # tokens of a dense split (the kernels' TMAX)
-MIN_SPLIT_TOKENS = 32   # fewest tokens in a paged split
-MAX_SPLIT_TOKENS = 64   # most tokens in a paged split
+SPLIT_TOKENS = 128      # most rows a split kernel stages (csrc TMAX)
+MIN_SPLIT_TOKENS = 32   # fewest tokens in a split
+MAX_SPLIT_TOKENS = 64   # most tokens in a split
 TARGET_CTAS = 264       # two CTAs on each of the H100's 132 SMs
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
-_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -65,6 +66,18 @@ def pages_per_split(B: int, Hkv: int, nb: int, block_size: int) -> int:
         if B * Hkv * -(-nb // pps) >= TARGET_CTAS:
             return pps
     return lo
+
+
+def split_tokens(B: int, Hkv: int, Smax: int) -> int:
+    """Cache rows per split of the dense kernel, from the shape: a
+    multiple of 16 from MIN_SPLIT_TOKENS to MAX_SPLIT_TOKENS, the longest
+    that still gives ``B * Hkv * n_splits >= TARGET_CTAS``, or the
+    shortest when the cache is too short to reach that. The last split
+    stops at Smax."""
+    for T in range(MAX_SPLIT_TOKENS, MIN_SPLIT_TOKENS, -16):
+        if B * Hkv * -(-Smax // T) >= TARGET_CTAS:
+            return T
+    return MIN_SPLIT_TOKENS
 
 
 def _merge_splits(o, m, l):
@@ -185,7 +198,8 @@ def _dense_kernel(qg, k_cache, v_cache, lengths):
                          f"lengths {tuple(lengths.shape)} do not fit "
                          "together")
     Smax = k_cache.shape[1]
-    S = -(-Smax // SPLIT_TOKENS)
+    T = split_tokens(B, Hkv, Smax)
+    S = -(-Smax // T)
     dev = qg.device
     o, m, l, out = _partials(qg, S)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -193,7 +207,8 @@ def _dense_kernel(qg, k_cache, v_cache, lengths):
         err = _dense_lib().dense_decode_fwd(
             qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            out.data_ptr(), B, Smax, Hkv, G, S, 1.0 / math.sqrt(dh), stream)
+            out.data_ptr(), B, Smax, Hkv, G, T, S, 1.0 / math.sqrt(dh),
+            stream)
     _build.check(err, "dense_decode_fwd")
     decode_attention.launches += 1
     return out

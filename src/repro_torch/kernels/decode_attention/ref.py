@@ -7,7 +7,10 @@ oracles the CUDA kernels are held against.
 - ``paged_decode_partials_ref`` (block pool): the paged kernel's own
   outputs — fp32 split partials (o, m, l), one split per
   ``pages_per_split`` table entries — so the CPU path runs the same split
-  algebra and the same merge as the card."""
+  algebra and the same merge as the card.
+- ``dense_decode_partials_ref`` (dense cache): the dense kernel's
+  partials, one split per ``split_tokens`` cache rows, the last cut at
+  Smax."""
 from __future__ import annotations
 
 import math
@@ -16,6 +19,22 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+
+
+def _split_partials(qg, k, v, valid):
+    """Online-softmax partials of qg [B,Hkv,G,dh] over k/v [B,S,T,Hkv,dh]
+    with valid [B,S,T]: o [B,Hkv,S,G,dh] (unnormalised), m and l
+    [B,Hkv,S,G], all fp32; a split with no valid row gives (0, NEG_INF,
+    0)."""
+    dh = qg.shape[-1]
+    s = torch.einsum("bhgd,bsthd->bhsgt", qg.float(), k.float()) / math.sqrt(
+        dh)
+    s = torch.where(valid[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where((m > 0.5 * NEG_INF)[..., None], p, torch.zeros_like(p))
+    o = torch.einsum("bhsgt,bsthd->bhsgd", p, v.float())
+    return o, m, p.sum(dim=-1)
 
 
 def paged_decode_partials_ref(qg, pool_k, pool_v, tables, lengths, *,
@@ -31,18 +50,29 @@ def paged_decode_partials_ref(qg, pool_k, pool_v, tables, lengths, *,
     S = -(-nb // pages_per_split)
     T = pages_per_split * Bs
     tbl = F.pad(tables.long(), (0, S * pages_per_split - nb))  # -> trash 0
-    k = pool_k[tbl].reshape(B, S, T, Hkv, dh).float()
-    v = pool_v[tbl].reshape(B, S, T, Hkv, dh).float()
-    s = torch.einsum("bhgd,bsthd->bhsgt", qg.float(), k) / math.sqrt(dh)
+    k = pool_k[tbl].reshape(B, S, T, Hkv, dh)
+    v = pool_v[tbl].reshape(B, S, T, Hkv, dh)
     tok = torch.arange(S * T, device=qg.device).reshape(S, T)
     valid = tok[None] < lengths.to(qg.device).long()[:, None, None]
-    s = torch.where(valid[:, None, :, None, :], s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1)
-    p = torch.exp(s - m[..., None])
-    p = torch.where((m > 0.5 * NEG_INF)[..., None], p, torch.zeros_like(p))
-    l = p.sum(dim=-1)
-    o = torch.einsum("bhsgt,bsthd->bhsgd", p, v)
-    return o, m, l
+    return _split_partials(qg, k, v, valid)
+
+
+def dense_decode_partials_ref(qg, k_cache, v_cache, lengths, *,
+                              split_tokens: int):
+    """qg: [B,Hkv,G,dh]; caches: [B,Smax,Hkv,dh]; lengths: [B] live rows
+    (clamped to Smax). Returns o [B,Hkv,S,G,dh] (unnormalised), m and l
+    [B,Hkv,S,G], all fp32, with S = ceil(Smax / split_tokens) splits of
+    split_tokens rows, the last cut at Smax. Rows at or past a length get
+    p = 0; a split with no live row gives (0, NEG_INF, 0)."""
+    B, Smax, Hkv, dh = k_cache.shape
+    T = split_tokens
+    S = -(-Smax // T)
+    pad = (0, 0, 0, 0, 0, S * T - Smax)          # rows Smax.. are dead
+    k = F.pad(k_cache, pad).reshape(B, S, T, Hkv, dh)
+    v = F.pad(v_cache, pad).reshape(B, S, T, Hkv, dh)
+    tok = torch.arange(S * T, device=qg.device).reshape(S, T)
+    valid = tok[None] < lengths.to(qg.device).long()[:, None, None]
+    return _split_partials(qg, k, v, valid)
 
 
 def decode_attention_ref(q, k_cache, v_cache, lengths):

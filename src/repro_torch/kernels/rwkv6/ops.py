@@ -73,6 +73,9 @@ def wkv(r, k, v, logw, u, state0, *, out_state=None):
         if t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"wkv kernel: {name} must be contiguous {dt}, "
                              f"got {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"wkv kernel: {name} must start on 16 bytes "
+                             "(the kernel reads it in 16-byte pieces)")
     y = torch.empty((B, S, H, N), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     with torch.cuda.device(r.device):

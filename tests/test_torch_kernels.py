@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from repro.kernels.decode_attention import ops as jax_dec_ops
+from repro.kernels.decode_attention.decode_attention import \
+    decode_attention_kernel
 from repro.kernels.decode_attention.paged_decode import \
     paged_decode_attention_kernel
 from repro.kernels.decode_attention.ref import (decode_attention_paged_ref,
@@ -28,7 +30,7 @@ from repro.kernels.rwkv6.ref import wkv_ref as jax_wkv_ref
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref as port_decode_attention_ref,
-    paged_decode_partials_ref)
+    dense_decode_partials_ref, paged_decode_partials_ref)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rwkv6.ops import wkv
@@ -324,6 +326,97 @@ def test_paged_split_rule_merges_to_jax(B, Hkv, G, Bs, lengths, splits):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("B,Hkv,Smax,want", [
+    (8, 2, 584, 32),         # the dense serve's step: 19 splits, 304 CTAs
+    (12, 2, 584, 48),        # 13 splits of 48 reach 312 CTAs
+    (16, 2, 584, 64),
+    (32, 2, 4096, 64),       # B=32 x 4096: 4,096 CTAs
+    (6, 2, 584, 32),         # 228 CTAs at most: the shortest split
+    (4, 2, 100, 32),
+    (1, 2, 16, 32),          # a cache shorter than one split
+    (140, 2, 64, 64),        # wide batch: one split of 64 is enough
+])
+def test_dense_split_tokens_rule(B, Hkv, Smax, want):
+    """A multiple of 16 from 32 to 64 rows, the splits cover Smax, 264
+    CTAs reached wherever 32-row splits reach them, and no longer split
+    in the range would also reach them."""
+    T = dec_ops.split_tokens(B, Hkv, Smax)
+    assert T == want
+    assert T % 16 == 0
+    assert dec_ops.MIN_SPLIT_TOKENS <= T <= dec_ops.MAX_SPLIT_TOKENS
+    n_splits = -(-Smax // T)
+    assert n_splits * T >= Smax > (n_splits - 1) * T
+    if B * Hkv * -(-Smax // dec_ops.MIN_SPLIT_TOKENS) >= dec_ops.TARGET_CTAS:
+        assert B * Hkv * n_splits >= dec_ops.TARGET_CTAS
+        for longer in range(T + 16, dec_ops.MAX_SPLIT_TOKENS + 1, 16):
+            assert B * Hkv * -(-Smax // longer) < dec_ops.TARGET_CTAS
+    else:
+        assert T == dec_ops.MIN_SPLIT_TOKENS
+
+
+def test_dense_split_partials_merge_to_jax():
+    """qwen2.5-3b's heads (16 query heads on 2 KV heads, dh 128) in the
+    dense engine's cache of 584 rows (no multiple of the 32-row split the
+    rule gives here), lengths 0, 1, 31, 32, 33 and Smax: the plain
+    partials, merged, give the JAX package's ``decode_attention_ref`` for
+    every row with a live column (its softmax of an empty row is NaN; the
+    port's, like the kernels', is 0) and the Pallas kernel in interpret
+    mode at block_kv = 8, which divides 584, for every row. float32,
+    summation order only: within 2e-5."""
+    rng = np.random.default_rng(27)
+    B, Smax, H, Hkv, dh = 6, 584, 16, 2, 128
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    lens = np.array([0, 1, 31, 32, 33, Smax], np.int32)
+    T = dec_ops.split_tokens(B, Hkv, Smax)
+    assert T == 32 and Smax % T
+    o, m, l = dense_decode_partials_ref(
+        _t(q).reshape(B, Hkv, H // Hkv, dh), _t(kc), _t(vc), _t(lens),
+        split_tokens=T)
+    assert o.shape == (B, Hkv, -(-Smax // T), H // Hkv, dh)
+    assert float(m[0].max()) == float(np.float32(NEG_INF))  # all dead
+    got = dec_ops._merge_splits(o, m, l).reshape(B, H, dh)
+    assert float(got[0].abs().max()) == 0.0
+    ref = decode_attention_ref(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), jnp.asarray(lens))
+    np.testing.assert_allclose(got.numpy()[1:], np.asarray(ref)[1:],
+                               atol=TOL, rtol=TOL)
+    pallas = jax_dec_ops.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        block_kv=8, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), atol=TOL,
+                               rtol=TOL)
+    out = dec_ops.decode_attention(_t(q), _t(kc), _t(vc), _t(lens))
+    np.testing.assert_allclose(out.numpy(), got.numpy(), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("B,Smax,lengths", [
+    (4, 256, (0, 1, 32, 256)),      # 8 splits of 32
+    (3, 192, (33, 191, 64)),        # 6 splits of 32
+])
+def test_dense_partials_match_tpu_kernel_partials(B, Smax, lengths):
+    """Where the split divides Smax, the plain partials are the TPU
+    kernel's own (o, m, l) at block_kv = the split, dead splits included:
+    (0, NEG_INF, 0)."""
+    rng = np.random.default_rng(31)
+    Hkv, G, dh = 2, 8, 64
+    qg = rng.standard_normal((B, Hkv, G, dh)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, Hkv, dh)).astype(np.float32)
+    lens = np.asarray(lengths, np.int32)
+    T = dec_ops.split_tokens(B, Hkv, Smax)
+    assert Smax % T == 0
+    o, m, l = dense_decode_partials_ref(_t(qg), _t(kc), _t(vc), _t(lens),
+                                        split_tokens=T)
+    jo, jm, jl = decode_attention_kernel(
+        jnp.asarray(qg), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(lens),
+        scale=1.0 / np.sqrt(dh), block_kv=T, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(m.numpy(), np.asarray(jm), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(l.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+
+
 def test_wrappers_check_shapes():
     q = torch.zeros((1, 4, 6, 16))
     with pytest.raises(ValueError):             # 6 q heads, 4 kv heads
@@ -433,6 +526,34 @@ def test_wkv_chunk_length_and_out_state():
     state = t[5].clone()
     y, s = wkv(*t[:5], state, out_state=state)
     assert s is state and _rel(state, s_o) < 1e-5 and _rel(y, y_o) < 1e-5
+
+
+@pytest.mark.parametrize("B,S,H,N", [
+    (2, 70, 2, 64),          # 4 column blocks of 16 per head
+    (1, 33, 4, 32),          # 2 column blocks
+    (3, 1, 2, 64),           # the decode step's shape
+])
+def test_wkv_column_blocks_are_independent(B, S, H, N):
+    """What the kernel's grid rests on: column j of y and of the state
+    depends only on column j of v and of state0. ``wkv_ref`` on a block
+    of 16 columns of v and state0 gives those columns of the full y and
+    state (float32, the same operations on the same values, so within
+    1e-6 of the output's scale); and each block matches the JAX package's
+    Pallas ``wkv_kernel`` in interpret mode within its test's 1e-5."""
+    args = _wkv_inputs(B, S, H, N, seed=7 * S + N)
+    t = [_t(a) for a in args]
+    y, s = port_wkv_ref(*t)
+    y_p, s_p = jax_wkv(*map(jnp.asarray, args), chunk=min(S, 32),
+                       interpret=True)
+    y_p, s_p = np.asarray(y_p), np.asarray(s_p)
+    for j0 in range(0, N, 16):
+        cols = slice(j0, j0 + 16)
+        y_c, s_c = port_wkv_ref(t[0], t[1], t[2][..., cols].contiguous(),
+                                t[3], t[4], t[5][..., cols].contiguous())
+        assert _rel(y_c, y[..., cols]) < 1e-6
+        assert _rel(s_c, s[..., cols]) < 1e-6
+        assert _rel(y_c, y_p[..., cols]) < 1e-5
+        assert _rel(s_c, s_p[..., cols]) < 1e-5
 
 
 def test_wkv_wrapper_checks_shapes():

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_paged, decode_attention_paged_plain,
-    pages_per_split)
+    pages_per_split, split_tokens)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -263,6 +263,53 @@ def test_dense_kernel_length_mask_exact(cuda):
     assert torch.equal(out1, out2)
 
 
+@pytest.mark.parametrize("H", [8, 16, 32])              # G = 4, 8, 16
+@pytest.mark.parametrize("B,Smax,T", [
+    (8, 584, 32),        # the dense serve's step: 19 splits, the last cut
+    (12, 584, 48),
+    (16, 584, 64),
+    (4, 100, 32),        # fewer CTAs than the target: the shortest split
+])
+def test_dense_kernel_split_edges(cuda, H, B, Smax, T):
+    """The shape's split (32, 48 or 64 rows; Smax no multiple of it):
+    lengths 0, 1, at and around split boundaries, Smax - 1, Smax and past
+    it, at G = 4, 8 and 16; then every row at or past a length poisoned
+    (+-1e4, NaN in half of them) leaves the output bit-unchanged."""
+    assert split_tokens(B, 2, Smax) == T
+    rng = np.random.default_rng(37)
+    edges = [0, 1, T - 1, T, T + 1, 2 * T, Smax - 1, Smax, Smax + 5,
+             Smax - T, Smax - T + 1, 3 * T - 1, T // 2, 2 * T + 1, 5, 77]
+    lengths = tuple(min(n, Smax + 5) for n in edges[:B])
+    q, k, v, lens = _dense_case(rng, B, Smax, H, 2, lengths, cuda)
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
+        if b % 2:
+            k2[b, n + 3:], v2[b, n + 3:] = float("nan"), float("nan")
+    out2 = decode_attention(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+def test_dense_kernel_long_context(cuda):
+    """B = 32 x Smax 4096 (64-row splits, 4,096 CTAs), full and ragged
+    lengths, against the plain version."""
+    rng = np.random.default_rng(41)
+    B, Smax = 32, 4096
+    assert split_tokens(B, 2, Smax) == 64
+    lengths = tuple([4096] * 24 + [4095, 4033, 4032, 1, 64, 65, 2000, 0])
+    q, k, v, lens = _dense_case(rng, B, Smax, 16, 2, lengths, cuda)
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """On CUDA tensors the wrappers launch or raise: no plain fallback."""
     q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
@@ -316,6 +363,28 @@ def test_wkv_kernel_matches_ref(cuda, B, S, H, N, in_dtype):
     assert _wkv_err(y, y_r) <= WKV_RTOL and _wkv_err(s, s_r) <= WKV_RTOL
     y_c, s_c = wkv_chunked(r, k, v, lw, u, s0)      # the plain model path
     assert _wkv_err(y, y_c) <= WKV_RTOL and _wkv_err(s, s_c) <= WKV_RTOL
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,H", [(32, 4), (64, 32)])
+@pytest.mark.parametrize("B,S", [(1, 1), (1, 500), (1, 512), (8, 1),
+                                 (8, 33)])
+def test_wkv_kernel_column_blocks(cuda, B, S, N, H, in_dtype):
+    """Every column block of the state (N / 16 of them per head) at the
+    decode shape (S = 1), a ragged S (no multiple of the 32-token tile)
+    and the prefill's S = 512, B = 1 and 8, bf16 and fp32 inputs, against
+    the sequential oracle; then in place (``out_state=state0``), which
+    must give the out-of-place result bit for bit."""
+    rng = np.random.default_rng(43 + S + N)
+    r, k, v, lw, u, s0 = _wkv_case(rng, B, S, H, N, cuda, in_dtype)
+    y, s = wkv(r, k, v, lw, u, s0)
+    torch.cuda.synchronize()
+    y_r, s_r = wkv_ref(r, k, v, lw, u, s0)
+    assert _wkv_err(y, y_r) <= WKV_RTOL and _wkv_err(s, s_r) <= WKV_RTOL
+    state = s0.clone()
+    y2, s2 = wkv(r, k, v, lw, u, state, out_state=state)
+    torch.cuda.synchronize()
+    assert s2 is state and torch.equal(state, s) and torch.equal(y2, y)
 
 
 def test_wkv_kernel_in_place_and_strong_decay(cuda):
