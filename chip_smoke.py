@@ -65,10 +65,32 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
  11. profile: one engine of the serve's shape, a prefill and a decode
      step under ``torch.profiler`` (host-clock step time, device time,
      idle share, the kernels that take the most time), for qwen2.5-3b in
-     the paged and the dense layout and for rwkv6-1.6b.
+     the paged and the dense layout and for rwkv6-1.6b;
+ 12. calibrate: ``simengine.calibrate`` on the card, ``h100`` chip, at the
+     serve's shape (isl 512, osl 64, 8 slots filled by 8 + 1 prefills) for
+     qwen2.5-3b and rwkv6-1.6b on phase 4's and 9's weights, into a
+     temporary calibration table; prints measured and predicted seconds
+     and both scales per model; fails unless every scale is finite and
+     positive, flash ran at least once per layer per prefill and paged
+     decode once per layer per decode step for qwen, and WKV once per
+     layer per prefill and decode step for rwkv; then ``serve.main
+     --backend sim --calibrate --requests 4`` on the card (full width:
+     the smoke configuration's head dim, 16, is not one the attention
+     kernels take);
+ 13. sim serve: ``serve.main --backend sim`` on that table with phase 5's
+     and phase 10's traffic; fails unless every request completes and no
+     kernel launched; prints the simulated against the real serve's p50
+     FTL, p50 TTL and tokens/s, and fails unless both latency ratios lie
+     in (0.1, 10);
+ 14. traced serve: phase 5's serve again with ``--trace-out`` and
+     ``REPRO_SANITIZE=1``; fails unless the trace is valid JSON with one
+     track per engine, every request's phases tile [arrival, done] within
+     1e-9 s, and the sanitizer saw every request through; prints its step
+     times beside phase 5's; then replays ``tests/data/traces/burst.jsonl``
+     through ``--trace`` at full width and fails unless all complete.
 
-Every path (5-8, 10) runs with every kernel's launch count set to 0 just
-before it and read just after; each phase prints its seconds.
+Every path (5-8, 10, 12-14) runs with every kernel's launch count set to 0
+just before it and read just after; each phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -81,8 +103,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -100,6 +124,13 @@ KERNEL_ATOL = 2e-2
 # and differ only in summation order: relative to the output's scale
 WKV_RTOL = 1e-4
 L2_BYTES = 50 << 20                     # H100 SXM L2 cache
+# the serve paths' traffic (phases 5, 10, 13 and 14)
+SERVE_ARGS = ["--requests", "16", "--isl", "512", "--osl", "64", "--slots",
+              "8", "--prefill-engines", "1", "--decode-engines", "2",
+              "--rate-matcher", "elastic"]
+# the simulated against the real serve's p50 FTL and TTL: within an order
+# of magnitude, the reference's own bound for its calibrated sim
+SIM_RATIO = (0.1, 10.0)
 
 
 def fail(msg: str) -> None:
@@ -459,7 +490,8 @@ def upcast(params):
 
 
 def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
-    """Full-width model check. Prefill one prompt, then run paged decode
+    """Full-width model check; returns the bf16 weights (phase 12 fits the
+    simulator on them). Prefill one prompt, then run paged decode
     steps for 4 slots that hold its cache, three ways on the same weights,
     pools and tables: bf16 with the kernels, bf16 with the plain path, and
     the plain path in float32 (weights upcast) as the reference. On random
@@ -516,14 +548,16 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
                                            toks, impl="plain")
             check(f"decode step {step}", dk, dp, dr)
             pos, toks = pos + 1, dr[:, :cfg.vocab_size].argmax(-1)
-    del params, p32, pools
+    del p32, pools
+    return params
 
 
 def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
                      steps: int = 4):
     """Full-width RWKV-6 check: prefill B prompts of S tokens, then dense
     decode steps from each version's own state, three ways on the same
-    weights (kernel bf16, plain bf16, plain fp32), held by ``hold``.
+    weights (kernel bf16, plain bf16, plain fp32), held by ``hold``;
+    returns the bf16 weights.
 
     ``hold`` allows the bf16 paths' compounded rounding, so the wiring of
     the kernel branches is held directly against the plain bf16 path as
@@ -574,7 +608,8 @@ def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
             hold(torch, f"{cfg.name} decode step {step}", cfg.num_layers,
                  *logits)
             toks = logits[2][:, :cfg.vocab_size].argmax(-1)
-    del params, p32, caches, twin
+    del p32, caches, twin
+    return params
 
 
 def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
@@ -720,6 +755,192 @@ def check_rwkv_serve(rec, n, cfg, requests: int = 16) -> None:
              f"transfers; one handoff is {handoff} bytes")
     log(f"# rwkv handoff: {rec['transfers']} x {handoff} bytes = "
         f"{moved:.0f} bytes")
+
+
+def check_fit(cfg, path, n, kernels) -> dict:
+    """Phase 12's checks of one model's fit: its record in the calibration
+    table (written by ``calibrate``: scales, measured and predicted
+    seconds, step counts), every scale finite and positive, and each of
+    ``kernels`` (``{name: per}``, per = "step" for every prefill and decode
+    step, "prefill" or "decode") launched at least once per layer per such
+    step; every other kernel not at all. Returns the record."""
+    with open(path) as f:
+        fit = json.load(f)[f"{cfg.name}/gpu-h100"]
+    log(f"# fit {cfg.name} on h100: prefill measured "
+        f"{fit['measured_prefill_s']:.6f} s, predicted "
+        f"{fit['predicted_prefill_s']:.6f} s, scale "
+        f"{fit['prefill_scale']:.4f}; decode measured "
+        f"{fit['measured_decode_s']:.6f} s, predicted "
+        f"{fit['predicted_decode_s']:.6f} s, scale "
+        f"{fit['decode_scale']:.4f} ({fit['prefills']} prefills, "
+        f"{fit['decode_steps']} decode steps, {fit['device']})")
+    for k in ("prefill_scale", "decode_scale"):
+        if not (math.isfinite(fit[k]) and fit[k] > 0):
+            fail(f"{cfg.name} fit: {k} = {fit[k]}")
+    steps = {"prefill": fit["prefills"], "decode": fit["decode_steps"],
+             "step": fit["prefills"] + fit["decode_steps"]}
+    for name, count in n.items():
+        if name in kernels:
+            bad = count < cfg.num_layers * steps[kernels[name]]
+        else:
+            bad = count != 0
+        if bad or fit["prefills"] < 2 or fit["decode_steps"] < 2:
+            fail(f"{cfg.name} fit: {count} {name} launches for "
+                 f"{fit['prefills']} prefills and {fit['decode_steps']} "
+                 f"decode steps")
+    return fit
+
+
+def sim_against_real(sim, real, what) -> dict:
+    """The simulated serve's p50 FTL, p50 TTL and tokens/s over the real
+    serve's; fails unless both latency ratios lie in ``SIM_RATIO``."""
+    ratios = {k: sim[k] / real[k] for k in ("p50_ftl_s", "p50_ttl_s",
+                                             "tokens_per_s")}
+    log(f"# sim / real {what}: " + json.dumps(
+        {k: {"sim": sim[k], "real": real[k], "ratio": ratios[k]}
+         for k in ratios}))
+    lo, hi = SIM_RATIO
+    for k in ("p50_ftl_s", "p50_ttl_s"):
+        if not lo < ratios[k] < hi:
+            fail(f"sim {what}: {k} ratio {ratios[k]} outside ({lo}, {hi})")
+    return ratios
+
+
+def traced_serve(serve, args, out_path):
+    """``serve.main(args + --trace-out out_path)`` with ``REPRO_SANITIZE=1``
+    for this call only. The launcher's ``Cluster`` is wrapped so the
+    cluster (its recorder and sanitizer) and every request it served
+    (through a ``workloads.Recorder``) can be checked after it. Returns
+    (record, cluster, requests)."""
+    from repro_torch.workloads import Recorder
+    seen = {}
+    base = serve.Cluster
+
+    class Seen(base):
+        def serve(self, workload, **kw):
+            seen["cluster"], seen["work"] = self, Recorder(workload)
+            return super().serve(seen["work"], **kw)
+
+    before = os.environ.get("REPRO_SANITIZE")
+    serve.Cluster, os.environ["REPRO_SANITIZE"] = Seen, "1"
+    try:
+        rec = serve.main(args + ["--trace-out", out_path])
+    finally:
+        serve.Cluster = base
+        if before is None:
+            del os.environ["REPRO_SANITIZE"]
+        else:
+            os.environ["REPRO_SANITIZE"] = before
+    return rec, seen["cluster"], seen["work"].emitted
+
+
+def check_trace(cluster, requests, out_path, expected: int) -> None:
+    """Phase 14's checks: the trace file is valid trace JSON with one track
+    per engine; the sanitizer was on and saw every request arrive and
+    complete; each request's phases (``obs.request_phases``) start at its
+    arrival, end at its completion and abut, within 1e-9 s."""
+    from repro_torch.serving import obs
+    with open(out_path) as f:
+        trace = json.load(f)
+    counts = obs.validate_trace(trace)
+    tracks = {(e["pid"], e["tid"]) for e in trace["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    engines = len(cluster.engines())
+    san = cluster.sanitizer
+    log(f"# trace: {os.path.getsize(out_path)} bytes, {counts}, "
+        f"{len(tracks)} tracks for {engines} engines; sanitizer "
+        + ("off" if san is None else
+           f"admitted {san.admitted}, completed {san.completed}"))
+    if len(tracks) != engines:
+        fail(f"trace: {len(tracks)} tracks for {engines} engines")
+    if san is None or san.admitted != expected or san.completed != expected:
+        fail("traced serve: the sanitizer did not see every request through")
+    if len(requests) != expected:
+        fail(f"traced serve: {len(requests)} requests of {expected}")
+    phases = obs.request_phases(cluster.recorder)
+    worst = 0.0
+    for r in requests:
+        spans = phases[r.rid]
+        gaps = [abs(spans[0][1] - r.arrival_t), abs(spans[-1][2] - r.done_t),
+                abs(sum(t1 - t0 for _, t0, t1 in spans) - r.e2e_s)]
+        gaps += [abs(a[2] - b[1]) for a, b in zip(spans, spans[1:])]
+        worst = max(worst, max(gaps))
+    log(f"# trace: phases of {len(requests)} requests tile [arrival, done] "
+        f"within {worst:.3e} s")
+    if not worst <= 1e-9:
+        fail(f"trace: request phases do not tile e2e ({worst} s)")
+
+
+def sim_phases(torch, serve, drive, sla, dev, scratch, weights, real, cfgs):
+    """Phases 12-14: the simulator fitted on the card and served against
+    the real serves of phases 5 and 10, then phase 5's serve traced with
+    the sanitizer on, and a trace replayed at full width."""
+    from repro_torch.core.hardware import get_chip
+    from repro_torch.serving.simengine import calibrate
+    cal_path = os.path.join(scratch, "calibration.json")
+    arch = {"qwen": [], "rwkv": ["--arch", "rwkv6-1.6b"]}
+    # the kernels each model's fit must launch, per layer per step of a kind
+    fit_kernels = {"qwen": {"flash": "prefill", "paged": "decode"},
+                   "rwkv": {"wkv": "step"}}
+
+    # 12) calibrate: the roofline's scale fitted through the kernel path
+    t_phase = time.perf_counter()
+    for m in ("qwen", "rwkv"):
+        _, n = drive(f"calibrate-{m}", lambda m=m: calibrate(
+            cfgs[m], weights[m], chip=get_chip("h100"), isl=512, osl=64,
+            batch=8, n_prompts=8, path=cal_path, device=dev))
+        check_fit(cfgs[m], cal_path, n, fit_kernels[m])
+    # the launcher's own flag, at its default fit shape (48/8, 2 slots);
+    # at full width: the smoke configuration's 16-wide heads are not a
+    # shape the attention kernels take (they take dh = 128)
+    cli_path = os.path.join(scratch, "cli_calibration.json")
+    rec, n = drive("calibrate-cli", lambda: serve.main(
+        ["--backend", "sim", "--calibrate", "--requests", "4",
+         "--calibration-path", cli_path]))
+    check_fit(cfgs["qwen"], cli_path, n, fit_kernels["qwen"])
+    if rec["completed"] != 4:
+        fail(f"sim serve after --calibrate: {rec['completed']} of 4")
+    log(f"# phase calibrate: {time.perf_counter() - t_phase:.1f} s")
+
+    # 13) sim serve: the simulator on the fitted clock, phase 5's and 10's
+    #     traffic, against their real serves
+    t_phase = time.perf_counter()
+    for m in ("qwen", "rwkv"):
+        rec, n = drive(f"sim-{m}", lambda m=m: serve.main(
+            arch[m] + SERVE_ARGS + ["--backend", "sim", "--calibration-path",
+                                    cal_path]))
+        sla(rec)
+        if rec["completed"] != 16 or any(n.values()):
+            fail(f"sim serve {m}: completed {rec['completed']} of 16, "
+                 f"launches {n}")
+        sim_against_real(rec, real[m], cfgs[m].name)
+    log(f"# phase sim serve: {time.perf_counter() - t_phase:.1f} s")
+
+    # 14) traced serve: phase 5 again under the recorder and the sanitizer,
+    #     then a corpus trace replayed at full width
+    t_phase = time.perf_counter()
+    out_path = os.path.join(scratch, "trace.json")
+    (rec, cluster, reqs), n = drive("traced", lambda: traced_serve(
+        serve, SERVE_ARGS, out_path))
+    sla(rec)
+    Lr = cfgs["qwen"].num_layers
+    if rec["completed"] != 16 or n["flash"] < Lr * rec["prefills"] \
+            or n["paged"] < Lr * rec["decode_steps"]:
+        fail(f"traced serve: completed {rec['completed']} of 16, "
+             f"launches {n}")
+    check_trace(cluster, reqs, out_path, 16)
+    del cluster, reqs
+    log("# traced / untraced mean step s: " + json.dumps(
+        {k: [rec[k], real["qwen"][k]]
+         for k in ("mean_prefill_step_s", "mean_decode_step_s")}))
+    burst = os.path.join(ROOT, "tests", "data", "traces", "burst.jsonl")
+    rec, n = drive("trace-replay", lambda: serve.main(["--trace", burst]))
+    sla(rec)
+    if rec["completed"] != 10 or rec["workload"] != "trace" \
+            or n["flash"] < Lr * rec["prefills"]:
+        fail(f"trace replay: completed {rec['completed']} of 10, "
+             f"launches {n}")
+    log(f"# phase traced serve: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -992,7 +1213,7 @@ def main() -> None:
 
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
-    model_phase(torch, cfg, dev, gen)
+    weights = {"qwen": model_phase(torch, cfg, dev, gen)}
     torch.cuda.empty_cache()
 
     counters = {"flash": fl_ops.flash_attention,
@@ -1019,7 +1240,8 @@ def main() -> None:
         return out, n
 
     def sla(rec):
-        log(f"# {rec['mode']} sla: " + json.dumps(
+        sim = " sim" if rec.get("backend") == "sim" else ""
+        log(f"# {rec['mode']}{sim} sla: " + json.dumps(
             {k: rec.get(k) for k in (
                 "completed", "prefills", "decode_steps", "p50_ftl_s",
                 "p99_ftl_s", "p50_ttl_s", "p99_ttl_s", "tokens_per_s",
@@ -1029,10 +1251,9 @@ def main() -> None:
 
     # 5) disaggregated serve, the port's entry point
     Lr = cfg.num_layers
-    rec, n = drive("disagg", lambda: serve.main(
-        ["--requests", "16", "--isl", "512", "--osl", "64", "--slots", "8",
-         "--prefill-engines", "1", "--decode-engines", "2",
-         "--rate-matcher", "elastic"]))
+    real = {}
+    rec, n = drive("disagg", lambda: serve.main(SERVE_ARGS))
+    real["qwen"] = rec
     sla(rec)
     if rec["completed"] != 16:
         fail(f"serve completed {rec['completed']} of 16")
@@ -1093,15 +1314,14 @@ def main() -> None:
     # 9) RWKV-6 model: full-width rwkv6-1.6b, kernel vs plain vs fp32
     rwkv = get_config("rwkv6-1.6b")
     t0 = time.perf_counter()
-    rwkv_model_phase(torch, rwkv, dev, gen)
+    weights["rwkv"] = rwkv_model_phase(torch, rwkv, dev, gen)
     torch.cuda.empty_cache()
     log(f"# phase rwkv model: {time.perf_counter() - t0:.1f} s")
 
     # 10) RWKV-6 serve: disaggregated, the state handed over
     rec, n = drive("rwkv", lambda: serve.main(
-        ["--arch", "rwkv6-1.6b", "--requests", "16", "--isl", "512",
-         "--osl", "64", "--slots", "8", "--prefill-engines", "1",
-         "--decode-engines", "2", "--rate-matcher", "elastic"]))
+        ["--arch", "rwkv6-1.6b"] + SERVE_ARGS))
+    real["rwkv"] = rec
     sla(rec)
     check_rwkv_serve(rec, n, rwkv)
 
@@ -1111,6 +1331,14 @@ def main() -> None:
     profile_phase(torch, cfg, dev, paged=False)
     profile_phase(torch, rwkv, dev)
     log(f"# phase profile: {time.perf_counter() - t0:.1f} s")
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        sim_phases(torch, serve, drive, sla, dev, scratch, weights, real,
+                   {"qwen": cfg, "rwkv": rwkv})
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    del weights
 
     def total(name):
         return sum(n[name] for n in by_path.values())

@@ -1,2 +1,3 @@
-"""The analytic leftovers the serving runtime needs: chip table and traffic
-patterns (copies of the reference's jax-free ``core`` modules)."""
+"""The analytic leftovers the serving runtime needs: chip table, traffic
+patterns, and the roofline performance model with the paper's study
+models (copies of the reference's jax-free ``core`` modules)."""

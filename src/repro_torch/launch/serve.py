@@ -29,11 +29,28 @@ The full configuration runs on the card (``--device`` defaults to
 ``--device cpu`` the plain PyTorch path, as the tests do. Engines default
 to the ``h100`` chip class, so the virtual clock reads measured card time.
 
+``--backend sim`` swaps every engine for the analytic-time ``SimEngine``
+(``serving/simengine.py``): the same policies and workload on
+roofline-clocked O(1) steps, with no params and no card. ``--calibrate``
+first fits the roofline scale per chip against a short run of the torch
+``Engine`` on ``--device`` (on the card: through the hand-written
+kernels), persisted to ``--calibration-path`` and reused by later sim
+runs; a chip with no fit there runs on the raw roofline, and says so.
+``--trace`` replays a JSONL trace (overriding ``--workload``);
+``--trace-out`` attaches a span ``TraceRecorder`` and writes a
+Chrome/Perfetto trace. ``REPRO_SANITIZE=1`` turns on the cluster's
+invariant sanitizer.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \
+      --calibrate --requests 16 --isl 512 --osl 64 --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --trace tests/data/traces/burst.jsonl --trace-out trace.json
+
 Where it differs from ``repro.launch.serve``: the engines' capacity also
 holds the pad that chunked prefill adds to a prompt (up to a chunk less
-one token), which the reference's capacity leaves out. Not yet ported:
-``--backend sim``, ``--calibrate``, ``--trace`` (trace replay) and
-``--trace-out`` (span tracing).
+one token), which the reference's capacity leaves out; the record names
+the step counts and mean step times of torch engines, and leaves them
+out under ``--backend sim``, whose engines do not count them.
 """
 from __future__ import annotations
 
@@ -56,9 +73,10 @@ from repro_torch.serving.policies import (ChunkedPiggybackScheduler,
                                           PriorityScheduler,
                                           RoundRobinRouter,
                                           StaticSplitRateMatcher)
+from repro_torch.serving.simengine import calibrate, load_calibration
 from repro_torch.workloads import (Burst, Diurnal, FixedShape,
                                    OpenLoopWorkload, Poisson,
-                                   SessionWorkload)
+                                   SessionWorkload, TraceReplay)
 
 SCHEDULERS = {
     "fcfs": lambda chunk: FCFSScheduler(),
@@ -76,6 +94,11 @@ WORKLOADS = ("poisson", "burst", "diurnal", "sessions")
 
 def build_workload(args, vocab: int):
     """(workload, expected_completions) from the CLI axis."""
+    if args.trace:
+        w = TraceReplay(args.trace, vocab=vocab, seed=args.seed)
+        if not w.requests:
+            raise SystemExit(f"--trace {args.trace}: no records found")
+        return w, len(w.requests)
     if args.workload == "sessions":
         w = SessionWorkload(vocab=vocab, seed=args.seed,
                             sessions=args.requests, turns=args.turns,
@@ -104,7 +127,15 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
                     "plain PyTorch path)")
-    ap.add_argument("--backend", choices=BACKENDS, default="torch")
+    ap.add_argument("--backend", choices=BACKENDS, default="torch",
+                    help="'torch' runs the model on --device; 'sim' runs "
+                    "the analytic-time SimEngine (no params, no card)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="fit (and persist) the sim roofline scale from a "
+                    "short torch-engine run on --device before serving "
+                    "(--backend sim)")
+    ap.add_argument("--calibration-path", default=".sim_calibration.json",
+                    help="JSON table of per-(model, chip) roofline scales")
     ap.add_argument("--mode", choices=["disagg", "coloc"], default="disagg")
     ap.add_argument("--scheduler", choices=sorted(SCHEDULERS), default="fcfs")
     ap.add_argument("--router", choices=sorted(ROUTERS), default=None,
@@ -115,6 +146,8 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--workload", choices=WORKLOADS, default="poisson",
                     help="arrival/scenario shape; 'sessions' is closed-loop "
                     "multi-turn (--requests = #conversations)")
+    ap.add_argument("--trace", default=None,
+                    help="JSONL trace to replay (overrides --workload)")
     ap.add_argument("--turns", type=int, default=3,
                     help="turns per conversation for --workload sessions")
     ap.add_argument("--think-time", type=float, default=0.05,
@@ -137,7 +170,14 @@ def main(argv=None) -> Dict[str, Any]:
                     help="prefill chunk of --mode coloc and of the prefix "
                     "cache (--scheduler prefix-affinity)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="attach a span TraceRecorder and write a Chrome/"
+                    "Perfetto trace (one track per engine, async slices "
+                    "per request, counter tracks) to this path")
     args = ap.parse_args(argv)
+    if args.calibrate and args.backend != "sim":
+        ap.error("--calibrate fits the sim roofline scale; pass "
+                 "--backend sim with it")
     if args.scheduler == "prefix-affinity" and args.piggyback_chunk <= 0:
         ap.error("--scheduler prefix-affinity needs --piggyback-chunk > 0 "
                  "(engines must be built with a PrefixCache)")
@@ -148,7 +188,9 @@ def main(argv=None) -> Dict[str, Any]:
         ap.error(f"--arch {args.arch}: {cfg.block} prompts are never "
                  "chunked, so --mode coloc and --scheduler prefix-affinity "
                  "(chunked prefill) do not apply; use --mode disagg")
-    params = init_torch_params(cfg, args.seed, device=args.device)
+    params = None
+    if args.backend == "torch":         # sim serves without params
+        params = init_torch_params(cfg, args.seed, device=args.device)
     work, expected = build_workload(args, cfg.vocab_size)
     # one chunk value feeds both the engines' PrefixCache and the scheduler
     chunk = (args.piggyback_chunk
@@ -157,14 +199,50 @@ def main(argv=None) -> Dict[str, Any]:
     capacity = chunk_capacity(args, work, chunk or (
         args.piggyback_chunk if piggyback else 0))
 
+    # one calibration load per distinct chip; a chip with no persisted fit
+    # runs on the raw roofline scale (announced, never silently borrowed
+    # from another chip's fit)
+    cal_by_chip = {}
+    if args.backend == "sim":
+        cal_params = None
+        if args.calibrate:      # params are chip-independent: init once
+            cal_params = init_torch_params(cfg, args.seed,
+                                           device=args.device)
+        # only the chips this mode actually builds (coloc runs one mixed
+        # pool on the prefill chip — no decode-chip engines to calibrate)
+        chips_needed = ({args.prefill_chip} if args.mode == "coloc"
+                        else {args.prefill_chip, args.decode_chip})
+        for chip_name in sorted(chips_needed):
+            if args.calibrate:
+                cal = calibrate(cfg, cal_params, chip=get_chip(chip_name),
+                                path=args.calibration_path, seed=args.seed,
+                                device=args.device)
+                print(f"# calibrated {cfg.name}/{chip_name}: "
+                      f"prefill x{cal.prefill_scale:.3g} "
+                      f"decode x{cal.decode_scale:.3g}", file=sys.stderr)
+            cal_by_chip[chip_name] = load_calibration(
+                args.calibration_path, cfg.name, get_chip(chip_name))
+        missing = sorted(c for c, v in cal_by_chip.items() if v is None)
+        if missing:
+            print(f"note: no calibration for {cfg.name} on "
+                  f"{'/'.join(missing)} in {args.calibration_path}; those "
+                  "engines use raw roofline scales (run --calibrate to "
+                  "fit)", file=sys.stderr)
+
     built = []      # every engine, including any the matcher drains
+    device = params["embed"].device if params is not None else None
 
     def mk(i, chip_name):
         built.append(make_engine(
             args.backend, i, cfg, params, slots=args.slots,
             capacity=capacity, chunk_size=chunk, chip=get_chip(chip_name),
-            device=params["embed"].device))
+            device=device, calibration=cal_by_chip.get(chip_name)))
         return built[-1]
+
+    recorder = None
+    if args.trace_out:
+        from repro_torch.serving.tracing import TraceRecorder
+        recorder = TraceRecorder()
 
     scheduler = SCHEDULERS[args.scheduler](chunk)
     sched_name = args.scheduler
@@ -183,7 +261,7 @@ def main(argv=None) -> Dict[str, Any]:
              "decode": [mk(100 + i, args.decode_chip)
                         for i in range(args.decode_engines)]},
             scheduler=scheduler, router=ROUTERS[router_name](),
-            rate_matcher=rate_matcher)
+            rate_matcher=rate_matcher, recorder=recorder)
     else:
         if piggyback and args.piggyback_chunk:
             scheduler = ChunkedPiggybackScheduler(args.piggyback_chunk)
@@ -204,30 +282,39 @@ def main(argv=None) -> Dict[str, Any]:
                        for i in range(args.prefill_engines
                                       + args.decode_engines)]},
             scheduler=scheduler, router=ROUTERS[router_name](),
-            rate_matcher=None)
+            rate_matcher=None, recorder=recorder)
     metrics = cluster.serve(work)
-    n_prefills = sum(e.prefills for e in built)
-    n_decode = sum(e.decode_steps for e in built)
+    if recorder is not None:
+        from repro_torch.serving.obs import export_perfetto
+        counts = export_perfetto(recorder, args.trace_out, metrics=metrics)
+        print(f"# trace: {args.trace_out} ({counts['total']} events, "
+              f"{counts['X']} slices, {counts['b']} request phases, "
+              f"{len(recorder.dumps)} flight dumps) — load in "
+              "ui.perfetto.dev or chrome://tracing", file=sys.stderr)
     extra = {"transfers": cluster.stats.transfers,
              "transferred_MB": cluster.stats.transferred_bytes / 2**20,
              "hardware": cluster.pool_hardware(),
-             "device": str(params["embed"].device),
              "capacity": capacity,
-             "prefills": n_prefills,
-             "decode_steps": n_decode,
              "prefix_hits": sum(e.prefix_cache.hits for e in built
-                                if e.prefix_cache is not None),
-             "mean_prefill_step_s": sum(e.prefill_s for e in built)
-             / max(n_prefills, 1),
-             "mean_decode_step_s": sum(e.decode_s for e in built)
-             / max(n_decode, 1)}
+                                if e.prefix_cache is not None)}
+    if args.backend == "torch":     # sim engines keep no step counts
+        n_prefills = sum(e.prefills for e in built)
+        n_decode = sum(e.decode_steps for e in built)
+        extra.update(
+            device=str(device), prefills=n_prefills,
+            decode_steps=n_decode,
+            mean_prefill_step_s=sum(e.prefill_s for e in built)
+            / max(n_prefills, 1),
+            mean_decode_step_s=sum(e.decode_s for e in built)
+            / max(n_decode, 1))
     if args.mode == "disagg":
         extra["prefill_pool"] = len(cluster.prefill_pool)
         extra["decode_pool"] = len(cluster.decode_pool)
     if rate_matcher is not None:
         extra["rate_matcher_moves"] = rate_matcher.moves
     record = {"arch": cfg.name, "mode": args.mode, "backend": args.backend,
-              "workload": args.workload, "scheduler": sched_name,
+              "workload": "trace" if args.trace else args.workload,
+              "scheduler": sched_name,
               "router": router_name, "rate_matcher": rm_name,
               **{k: round(v, 4) for k, v in metrics.items()}, **extra}
     print(json.dumps(record, indent=1, default=str))

@@ -1,2 +1,3 @@
-"""Serving runtime of the port: the paged ``Engine`` on PyTorch plus copies
-of the reference's jax-free cluster, policies and allocator."""
+"""Serving runtime of the port: the paged ``Engine`` on PyTorch, the
+analytic-time ``SimEngine``, plus copies of the reference's jax-free
+cluster, policies, allocator, streaming metrics and span tracing."""

@@ -1,12 +1,15 @@
 """Policy-driven serving runtime: one event loop, role-tagged engine pools.
 
 The PyTorch port's own copy of ``repro.serving.cluster`` (the port imports
-nothing of the JAX package). ``Cluster`` owns pools of ``Engine``s tagged
-by role — ``"prefill"``, ``"decode"``, or ``"mixed"`` — and drives them
-with a single virtual-time event loop over real compute: engine step wall
-times advance the cluster clock, so FTL/TTL/throughput metrics reflect
-actual computation (scaled by straggler-injection factors where tests use
-them).
+nothing of the JAX package), hooks included: the opt-in invariant
+sanitizer (``repro_torch.analysis.sanitizer``), the span recorder
+(``serving.tracing``) and streaming metrics (``serving.metrics``).
+``Cluster`` owns pools of ``Engine``s tagged by role — ``"prefill"``,
+``"decode"``, or ``"mixed"`` — and drives them with a single virtual-time
+event loop over real compute (the torch ``Engine``) or roofline-clocked
+bookkeeping (``SimEngine``): engine step times advance the cluster clock,
+so FTL/TTL/throughput metrics reflect actual computation (scaled by
+straggler-injection factors where tests use them).
 
 Traffic comes in through ``serve(workload)``: a ``repro_torch.workloads``
 ``Workload`` is pulled incrementally as the virtual clock advances and is
@@ -28,9 +31,6 @@ The paper's two deployment archetypes are configurations, not code paths:
                       scheduler=ChunkedPiggybackScheduler(...),
                       router=KVLocalityRouter())
 
-Unlike the reference, this copy carries no invariant sanitizer, span
-recorder or streaming-metrics hooks; those modules are not ported yet.
-
 Fault tolerance is uniform: a dead engine raises ``EngineFailure``; the
 cluster re-queues its in-flight requests (``Request.reset_for_requeue``) and
 continues on the surviving pool, notifying the rate matcher for failover.
@@ -47,7 +47,7 @@ from repro_torch.serving.common import EngineFailure
 from repro_torch.serving.request import Request, sla_metrics
 
 if TYPE_CHECKING:       # Engine is annotation-only: the loop is backend-
-    from repro_torch.serving.engine import Engine     # agnostic
+    from repro_torch.serving.engine import Engine     # agnostic (real or sim)
 
 PREFILL, DECODE, MIXED = "prefill", "decode", "mixed"
 
@@ -294,10 +294,34 @@ class Cluster:
     """Role-tagged engine pools driven by one virtual-time event loop."""
 
     def __init__(self, pools: Dict[str, List[Engine]], *,
-                 scheduler=None, router=None, rate_matcher=None):
+                 scheduler=None, router=None, rate_matcher=None,
+                 sanitize: Optional[bool] = None,
+                 recorder=None):
         from repro_torch.serving.policies import FCFSScheduler, RoundRobinRouter
         assert pools and all(r in (PREFILL, DECODE, MIXED) for r in pools), \
             f"roles must be {PREFILL}/{DECODE}/{MIXED}: {list(pools)}"
+        # opt-in invariant monitor: explicit flag wins, else REPRO_SANITIZE.
+        # Imported lazily so the loop carries no analysis dependency when off.
+        if sanitize is None:
+            from repro_torch.analysis.sanitizer import sanitize_enabled_by_env
+            sanitize = sanitize_enabled_by_env()
+        if sanitize:
+            from repro_torch.analysis.sanitizer import ClusterSanitizer
+            self.sanitizer: Optional[ClusterSanitizer] = ClusterSanitizer()
+        else:
+            self.sanitizer = None
+        # span/event tracing (serving/tracing.py). A disabled recorder
+        # (NullRecorder) collapses to None here so the event loop's only
+        # off-path cost is the same ``is not None`` guard the sanitizer
+        # pays — zero allocations, zero calls (the hotpath budget's
+        # disabled-is-free contract).
+        if recorder is not None and not getattr(recorder, "enabled", True):
+            recorder = None
+        self.recorder = recorder
+        if recorder is not None and self.sanitizer is not None:
+            # SanitizerError messages append the flight-recorder ring
+            # instead of the sanitizer's ad-hoc transition tail
+            self.sanitizer.flight = recorder.flight
         self._views: Dict[str, List[Engine]] = {}
         self.pools: Dict[str, List[Engine]] = {
             role: ObservedList(engines, self._invalidate_views)
@@ -322,6 +346,7 @@ class Cluster:
         # idle engines cost zero work per round
         self._occupied: Dict[int, Engine] = {}
         self._decode_scratch: List[Engine] = []
+        self._metrics = None        # StreamingMetrics while serve() streams
 
     # -- pool views (also the legacy orchestrator attribute surface) -------
 
@@ -443,8 +468,13 @@ class Cluster:
         """Re-queue (at the front) everything in flight on an engine and
         release its slots — the one requeue path for failures, migrations,
         and straggler drains."""
+        rec = self.recorder
         for slot, req in list(eng.slot_req.items()):
             req.reset_for_requeue()
+            if self.sanitizer is not None:
+                self.sanitizer.on_requeue(req)
+            if rec is not None:
+                rec.on_requeue(req, self.now)
             self.queue.insert(0, req)
             self.stats.requeued += 1
             eng.evict(slot)
@@ -456,6 +486,12 @@ class Cluster:
         self.requeue_inflight(eng)
         src.remove(eng)
         dst.append(eng)
+        rec = self.recorder
+        if rec is not None:
+            for role, pool in self.pools.items():
+                if pool is dst:
+                    rec.on_migrate(eng, role, self.now)
+                    break
 
     def retire(self, eng: Engine):
         """Drop an engine from the fleet entirely (the rate-matcher
@@ -470,6 +506,10 @@ class Cluster:
     def _fail_engine(self, eng: Engine):
         """Re-queue everything in flight on a dead engine."""
         self.stats.engine_failures += 1
+        if self.sanitizer is not None:
+            self.sanitizer.on_engine_failure(eng)
+        if self.recorder is not None:
+            self.recorder.on_engine_failure(eng, self.now)
         self._invalidate_views()    # the engine may stay pooled, unhealthy
         self.requeue_inflight(eng)
         if self.rate_matcher is not None:
@@ -484,7 +524,7 @@ class Cluster:
         return self.serve(StaticWorkload(requests), max_wall_s=max_wall_s)
 
     def serve(self, workload, *, until: Optional[float] = None,
-              max_wall_s: float = 1e9) -> Dict[str, float]:
+              max_wall_s: float = 1e9, metrics=None) -> Dict[str, float]:
         """Drive a ``Workload`` through the virtual-time event loop.
 
         Events are pulled incrementally (``workload.poll``) as the clock
@@ -495,6 +535,14 @@ class Cluster:
         time and drains what is in flight; ``max_wall_s`` hard-stops the
         loop. Returns ``sla_metrics`` over every request the workload
         emitted.
+
+        ``metrics`` (a ``serving.metrics.StreamingMetrics``) switches the
+        episode to streaming accounting: completions fold into fixed-size
+        sketches as they happen, finished requests are not retained (unless
+        the sanitizer needs them for conservation), and the return value is
+        ``metrics.result()`` — same keys as ``sla_metrics`` plus windowed
+        rates and occupancy. This is what keeps memory flat over
+        million-request fleet episodes (``benchmarks/fleet_scale.py``).
 
         Each call is one episode: the virtual clock restarts at 0 so
         workload timestamps are serve-relative (back-to-back calls — e.g.
@@ -524,6 +572,16 @@ class Cluster:
         on_episode = getattr(self.scheduler, "on_episode", None)
         if on_episode is not None:
             on_episode(self)    # e.g. drop per-request affinity memos
+        san = self.sanitizer
+        if san is not None:
+            san.on_episode_begin(self)
+        rec = self.recorder
+        if rec is not None:
+            rec.on_episode_begin(self)
+        # streaming episodes drop finished requests; the sanitizer's
+        # episode-end conservation check still needs the full list
+        keep_served = metrics is None or san is not None
+        self._metrics = metrics
         self._workload = workload
         prepare = getattr(self.rate_matcher, "prepare", None)
         if prepare is not None:
@@ -536,13 +594,29 @@ class Cluster:
             self.events.push(self.now + tick_every, EV_REBALANCE)
         try:
             while True:
+                if san is not None:
+                    san.on_round(self.now)
                 horizon = self.now if until is None \
                     else min(self.now, until)
                 for r in workload.poll(horizon):
-                    served.append(r)
+                    if keep_served:
+                        served.append(r)
                     self.queue.append(r)    # chronological; requeues stay
                     #                         at the front (reset_for_requeue)
+                    if metrics is not None:
+                        metrics.on_arrival(r, self.now)
+                    if san is not None:
+                        san.on_arrival(r, self.now)
+                    if rec is not None:
+                        # stamp the workload's declared arrival, not the
+                        # poll instant: the queue phase must start where
+                        # queue_wait_s starts, so phases tile to e2e
+                        rec.on_arrival(r, r.arrival_t)
                 progressed = self._step()
+                if metrics is not None:
+                    metrics.on_round(self)
+                if rec is not None:
+                    rec.on_round(self)
                 if self.now > max_wall_s:
                     break
                 if self.rate_matcher is not None:
@@ -558,6 +632,11 @@ class Cluster:
                 break       # exhausted (or waiting on nothing: drained)
         finally:
             self._workload = None
+            self._metrics = None
+        if san is not None:     # conservation only on clean exit — an
+            san.on_episode_end(self, served)    # exception above already
+        if metrics is not None:                 # carries the diagnosis
+            return metrics.result()
         return sla_metrics(served)
 
     def _step(self) -> bool:
@@ -584,6 +663,10 @@ class Cluster:
                 tick = getattr(self.rate_matcher, "tick", None)
                 if tick is not None:
                     tick(self)
+                    if self.recorder is not None:
+                        self.recorder.on_rebalance(
+                            self.now,
+                            getattr(self.rate_matcher, "last_signal", None))
                 every = getattr(self.rate_matcher, "tick_every_s", None)
                 if every:
                     nxt = t + every
@@ -600,6 +683,7 @@ class Cluster:
         by the memoized fleet rank so the schedule is byte-identical."""
         progressed = False
         self._fire_due_events()
+        rec = self.recorder
 
         # 1) admission + prefill: the scheduler picks per prefill-capable
         #    engine; mixed engines also need a local decode slot to admit.
@@ -607,6 +691,7 @@ class Cluster:
         #    advances the clock, which can ready future-dated queued
         #    requests; a select() that returns None leaves the probe valid
         #    (purity-checked: it touches neither the queue nor the clock).
+        san = self.sanitizer
         mixed = self.pools.get(MIXED, ())
         ready = self.first_ready() is not None
         for eng in self.prefill_capable_healthy():
@@ -617,7 +702,11 @@ class Cluster:
                 continue
             if mixed and eng in mixed and not eng.has_free_slot():
                 continue
+            if san is not None:
+                digest = san.state_digest(self)
             req = self.scheduler.select(self, eng)
+            if san is not None:
+                san.check_hook_purity(self, "scheduler.select", digest)
             if req is None:
                 continue
             self.queue.remove(req)
@@ -636,6 +725,11 @@ class Cluster:
             self.stats.prefill_busy_s += dt
             req.first_token_t = self.now
             req.output.append(tok)
+            if self.sanitizer is not None:
+                self.sanitizer.on_prefill(req, eng, self.now)
+            if rec is not None:
+                rec.on_admit(req, eng, req.prefill_start_t)
+                rec.on_prefill(req, eng, self.now - dt, self.now)
             self.pending_insert.append((req, tok, cache, eng))
             progressed = True
             ready = self.first_ready() is not None      # queue + clock moved
@@ -644,19 +738,31 @@ class Cluster:
         #    slot (the disaggregation hop when it crosses engines).
         still = []
         for req, tok, cache, src in self.pending_insert:
+            if san is not None:
+                digest = san.state_digest(self)
             target = self.router.route(self, req, src)
+            if san is not None:
+                san.check_hook_purity(self, "router.route", digest)
             if target is None:
                 still.append((req, tok, cache, src))
                 continue
             target.insert(req, cache)
             self._occupied[id(target)] = target
+            if self.sanitizer is not None:
+                self.sanitizer.on_insert(req, target, self.now)
             req._next_tok = tok
-            req.insert_t = self.now
+            req.insert_t = self.now     # unconditional: attribution columns
+            #                             are identical with tracing on/off
+            nb = 0
             if target is not src:
                 self.stats.transfers += 1
                 # one kv_bytes() per transferring request (an entry leaves
-                # pending on insert); a PagedCache answers from its nbytes
-                self.stats.transferred_bytes += kv_bytes(cache)
+                # pending on insert); SimCache and PagedCache answer from
+                # their nbytes, a dense cache's tensors are walked once
+                nb = kv_bytes(cache)
+                self.stats.transferred_bytes += nb
+            if rec is not None:
+                rec.on_insert(req, target, src, self.now, nb)
             progressed = True
         self.pending_insert = still
 
@@ -700,15 +806,28 @@ class Cluster:
         dt = eng.step_times[-1]
         self.now += dt
         self.stats.decode_busy_s += dt
+        san = self.sanitizer
+        rec = self.recorder
+        if rec is not None:
+            rec.on_decode_step(eng, self.now - dt, self.now, len(nxt))
         for slot, tok in nxt.items():
             req = eng.slot_req[slot]
+            if san is not None:
+                san.on_token(req, eng, self.now)
             req.output.append(tok)
             req.token_times.append(self.now)
             req._next_tok = tok
-            req.decode_active_s += dt
+            req.decode_active_s += dt   # unconditional: stall attribution
+            #                             is identical with tracing on/off
             if req.done:
                 req.done_t = self.now
                 eng.evict(slot)
+                if san is not None:
+                    san.on_complete(req, self.now)
+                if rec is not None:
+                    rec.on_complete(req, self.now)
+                if self._metrics is not None:
+                    self._metrics.on_complete(req, self.now)
                 if self._workload is not None:
                     self._workload.on_complete(req, self.now)
         if not eng.slot_req:        # drained: drop from the occupied set so

@@ -1,6 +1,6 @@
 """Workload API for ``Cluster.serve()``: the port's copy of
-``repro.workloads`` — open-loop arrival processes x shape samplers, and
-closed-loop multi-turn sessions. Trace replay comes with a later slice."""
+``repro.workloads`` — open-loop arrival processes x shape samplers,
+closed-loop multi-turn sessions and JSONL trace replay."""
 from repro_torch.workloads.arrivals import (ArrivalProcess, Burst, Diurnal,
                                             Merged, PiecewiseRate, Poisson)
 from repro_torch.workloads.base import (BATCH, INTERACTIVE, STANDARD,
@@ -12,6 +12,7 @@ from repro_torch.workloads.sessions import SessionWorkload
 from repro_torch.workloads.shapes import (PATTERN_SHAPES, FixedShape,
                                           LognormalShape, MixtureShape,
                                           ShapeSampler)
+from repro_torch.workloads.trace import TraceReplay, record_trace
 
 __all__ = [
     "Workload", "WorkloadSummary", "StaticWorkload", "Superpose",
@@ -22,4 +23,5 @@ __all__ = [
     "ShapeSampler", "FixedShape", "LognormalShape", "MixtureShape",
     "PATTERN_SHAPES",
     "OpenLoopWorkload", "SessionWorkload",
+    "TraceReplay", "record_trace",
 ]

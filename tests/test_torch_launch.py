@@ -167,3 +167,103 @@ def test_launcher_refuses_chunked_prefill_for_rwkv(flags, capsys):
         serve.main(["--arch", "rwkv6-1.6b", "--smoke", "--device", "cpu",
                     *flags])
     assert "never chunked" in capsys.readouterr().err
+
+
+def test_import_walk_covers_the_simulator_tracing_and_sanitizer():
+    """The hygiene walk above reaches every module of the port, the
+    analysis package and the simulator path included."""
+    walked = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"analysis/__init__.py", "analysis/sanitizer.py",
+            "core/perf_model.py", "core/paper_models.py",
+            "serving/simengine.py", "serving/metrics.py",
+            "serving/tracing.py", "serving/obs.py",
+            "workloads/trace.py"} <= walked
+
+
+def test_sim_engine_construction_leaves_torch_unloaded():
+    """``make_engine("sim")`` needs no params and imports no torch."""
+    code = ("import sys; "
+            "from repro_torch.serving.backends import make_engine; "
+            "from repro_torch.core.paper_models import LLAMA31_8B; "
+            "e = make_engine('sim', 0, LLAMA31_8B, paged=True, "
+            "device='cuda'); "
+            "e.prefill(__import__('numpy').arange(8)); "
+            "loaded = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'repro')); "
+            "assert not loaded, loaded; print('clean')")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_launcher_sim_backend_needs_no_card(monkeypatch, capsys, tmp_path):
+    """``--backend sim`` at full width with no ``--device`` and no card:
+    no params, no card asked for, and no field a sim engine cannot give;
+    a chip with no fit is announced."""
+    import torch
+    from repro_torch.launch import serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rec = serve.main(["--backend", "sim", "--requests", "16", "--isl",
+                      "512", "--osl", "64", "--slots", "8",
+                      "--calibration-path", str(tmp_path / "none.json")])
+    assert rec["completed"] == 16 and rec["backend"] == "sim"
+    assert rec["arch"] == "qwen2.5-3b" and rec["capacity"] == 512 + 64 + 8
+    for key in ("device", "prefills", "decode_steps", "mean_prefill_step_s",
+                "mean_decode_step_s"):
+        assert key not in rec
+    assert rec["hardware"]["decode"] == {"gpu-h100": 2}
+    assert "no calibration for qwen2.5-3b on h100" in capsys.readouterr().err
+
+
+def test_launcher_sim_calibrate_on_cpu(tmp_path):
+    path = tmp_path / "cal.json"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--backend", "sim", "--calibrate",
+         "--calibration-path", str(path), "--requests", "4"],
+        env=_env(), capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "# calibrated qwen2.5-3b-smoke/h100" in out.stderr
+    assert "no calibration" not in out.stderr
+    rec = json.loads(out.stdout)
+    assert rec["completed"] == 4 and rec["backend"] == "sim"
+    fit = json.loads(path.read_text())["qwen2.5-3b-smoke/gpu-h100"]
+    assert fit["device"] == "cpu"
+    assert fit["prefill_scale"] > 0 and fit["decode_scale"] > 0
+
+
+def test_launcher_replays_a_trace_on_cpu():
+    """``--trace`` overrides ``--workload``: all of burst.jsonl's requests
+    are served by the torch engines."""
+    rec = _serve("--trace", str(ROOT / "tests/data/traces/burst.jsonl"),
+                 "--workload", "sessions")
+    assert rec["workload"] == "trace" and rec["completed"] == 10
+    assert rec["prefills"] == 10 and rec["device"] == "cpu"
+
+
+def test_launcher_trace_out_writes_a_loadable_trace(tmp_path):
+    from repro_torch.serving.obs import validate_trace
+    path = tmp_path / "trace.json"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+         "--device", "cpu", "--requests", "4", "--isl", "32", "--osl", "6",
+         "--trace-out", str(path)],
+        env={**_env(), "REPRO_SANITIZE": "1"}, capture_output=True,
+        text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert f"# trace: {path}" in out.stderr
+    trace = json.loads(path.read_text())
+    counts = validate_trace(trace)
+    assert counts["b"] == counts["e"] > 0 and counts["X"] > 0
+    tracks = {(e["pid"], e["tid"]) for e in trace["traceEvents"]
+              if e["ph"] == "M" and e["name"] == "thread_name"}
+    assert len(tracks) == 3         # one per engine: 1 prefill + 2 decode
+    assert trace["otherData"]["metrics"]["completed"] == 4
+
+
+def test_launcher_refuses_calibrate_without_sim(capsys):
+    from repro_torch.launch import serve
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--calibrate"])
+    assert "--backend sim" in capsys.readouterr().err

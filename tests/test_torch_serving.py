@@ -185,8 +185,8 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
     eng.fail()
     with pytest.raises(Exception, match="down"):
         eng.prefill(np.arange(4))
-    with pytest.raises(ValueError):
-        make_engine("sim", 4, cfg, tp, device="cpu")
+    with pytest.raises(ValueError, match="unknown backend"):
+        make_engine("weird", 4, cfg, tp, device="cpu")
     # a bare "cuda" resolves to the indexed device its tensors report
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
