@@ -87,10 +87,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      track per engine, every request's phases tile [arrival, done] within
      1e-9 s, and the sanitizer saw every request through; prints its step
      times beside phase 5's; then replays ``tests/data/traces/burst.jsonl``
-     through ``--trace`` at full width and fails unless all complete.
+     through ``--trace`` at full width and fails unless all complete;
+ 15. 14B models: full-width, full-depth qwen3-14b (40 layers, 40/8 heads:
+     G = 5, qk_norm) and phi3-medium-14b (40 layers, 40/10 heads), bf16,
+     random weights from seed 0, each checked as phase 4 (prefill of 512,
+     4 paged decode steps, three ways, the same rule) with the float32
+     reference upcast one block at a time beside the bf16 weights; each
+     model freed before the next, its peak memory printed;
+ 16. 14B serves: ``serve.main --arch qwen3-14b`` and ``--arch
+     phi3-medium-14b`` with phase 5's traffic; fails unless all 16
+     complete, flash ran exactly 40 times per prefill, paged decode exactly
+     40 times per decode step and per engine's warm-up step, and neither
+     dense decode nor WKV ran;
+ 17. sweep: ``python -m repro_torch.launch.sweep`` over the design grid of
+     five models (the paper's llama-3.1-8b and the four registered
+     architectures) x h100, a100, h100:a100 x ISL 512/2048/8192 x OSL
+     64/256 x reuse 0/0.5 x disagg/coloc, 64 chips at most, with the
+     simulate axis, 4 worker processes, into a temporary store, on the
+     host (no CUDA in the subprocess); fails unless its ``spec_hash`` is
+     4944b71631008786 and it evaluated 695,418 points in 240 cells, and a
+     rerun is 240 cache hits with the same points and frontier areas;
+     prints records, frontier areas, points per second and host seconds.
 
-Every path (5-8, 10, 12-14) runs with every kernel's launch count set to 0
-just before it and read just after; each phase prints its seconds.
+Every path (5-8, 10, 12-14, 16) runs with every kernel's launch count set
+to 0 just before it and read just after; each phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -99,6 +119,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -131,6 +152,17 @@ SERVE_ARGS = ["--requests", "16", "--isl", "512", "--osl", "64", "--slots",
 # the simulated against the real serve's p50 FTL and TTL: within an order
 # of magnitude, the reference's own bound for its calibrated sim
 SIM_RATIO = (0.1, 10.0)
+# the 14B dense configurations' (query, KV) heads: qwen3-14b's G = 5 packs
+# 12 positions into 60 of a flash tile's 64 rows
+HEADS_14B = {"qwen3-14b": (40, 8), "phi3-medium-14b": (40, 10)}
+# phase 17's design grid, its content address and the perf-model points it
+# evaluates (both deterministic: the JAX package's sweep gives the same)
+SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
+              "qwen2.5-3b", "rwkv6-1.6b", "--hardware", "h100", "a100",
+              "h100:a100", "--isl", "512", "2048", "8192", "--osl", "64",
+              "256", "--reuse", "0.0", "0.5", "--modes", "disagg", "coloc",
+              "--max-chips", "64", "--simulate", "--workers", "4", "--quiet"]
+SWEEP_HASH, SWEEP_POINTS, SWEEP_CELLS = "4944b71631008786", 695_418, 240
 
 
 def fail(msg: str) -> None:
@@ -485,8 +517,26 @@ def hold(torch, what, L, lk, lp, lr):
 
 
 def upcast(params):
-    return {k: ([{n: t.float() for n, t in b.items()} for b in v]
-                if k == "blocks" else v.float()) for k, v in params.items()}
+    """The float32 reference's weights: every leaf upcast, the blocks one
+    at a time as the model walks them (``UpcastBlocks``)."""
+    return {k: (UpcastBlocks(v) if k == "blocks" else v.float())
+            for k, v in params.items()}
+
+
+class UpcastBlocks:
+    """The bf16 blocks, each upcast to float32 only while the model walks
+    it: a float32 reference of a 14B model fits beside its bf16 weights
+    (59 GB upcast whole, one block's 1.5 GB this way)."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+
+    def __len__(self):
+        return len(self.blocks)
+
+    def __iter__(self):
+        for b in self.blocks:
+            yield {n: t.float() for n, t in b.items()}
 
 
 def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
@@ -494,12 +544,12 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
     simulator on them). Prefill one prompt, then run paged decode
     steps for 4 slots that hold its cache, three ways on the same weights,
     pools and tables: bf16 with the kernels, bf16 with the plain path, and
-    the plain path in float32 (weights upcast) as the reference. On random
-    weights, bf16 rounding compounds over 36 layers into logit errors of
-    a few percent whatever the attention, so the kernel path is held to
-    the plain bf16 path's own distance from the float32 reference: it
-    fails on non-finite logits, or on an error above twice the plain
-    path's plus 1e-3 of the logit scale."""
+    the plain path in float32 (weights upcast, one block at a time) as the
+    reference. On random weights, bf16 rounding compounds over the layers
+    into logit errors of a few percent whatever the attention, so the
+    kernel path is held to the plain bf16 path's own distance from the
+    float32 reference: it fails on non-finite logits, or on an error above
+    twice the plain path's plus 1e-3 of the logit scale."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import init_torch_params
     params = init_torch_params(cfg, 0, device=dev)
@@ -943,6 +993,102 @@ def sim_phases(torch, serve, drive, sla, dev, scratch, weights, real, cfgs):
     log(f"# phase traced serve: {time.perf_counter() - t_phase:.1f} s")
 
 
+def dense14b_model_phase(torch, dev, gen, get_config) -> None:
+    """Phase 15: ``model_phase`` on each 14B configuration at full width
+    and depth, the float32 reference one block at a time; each model's
+    weights freed before the next."""
+    for arch in HEADS_14B:
+        cfg = get_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model_phase(torch, cfg, dev, gen)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for k, t in params.items() if k != "blocks")
+        n_params += sum(t.numel() for b in params["blocks"]
+                        for t in b.values())
+        log(f"# phase model {arch} ({cfg.num_layers} layers, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads, G = {cfg.q_group}, "
+            f"{n_params / 1e9:.2f} B parameters): "
+            f"{time.perf_counter() - t0:.1f} s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del params
+        torch.cuda.empty_cache()
+
+
+def dense14b_serves(serve, drive, sla, get_config) -> None:
+    """Phase 16: each 14B configuration served with phase 5's traffic;
+    every prefill through flash and every decode step (and each of the 3
+    engines' warm-up steps) through paged decode, once per layer exactly,
+    and no other kernel."""
+    engines = 3                 # SERVE_ARGS: 1 prefill + 2 decode engines
+    for arch in HEADS_14B:
+        cfg = get_config(arch)
+        Lr = cfg.num_layers
+        rec, n = drive(f"serve-{arch}", lambda arch=arch: serve.main(
+            ["--arch", arch] + SERVE_ARGS))
+        sla(rec)
+        if rec["completed"] != 16:
+            fail(f"{arch} serve completed {rec['completed']} of 16")
+        if n["flash"] != Lr * rec["prefills"] or rec["prefills"] < 16:
+            fail(f"{arch} serve: {n['flash']} flash launches for "
+                 f"{rec['prefills']} prefills of {Lr} layers")
+        if n["paged"] != Lr * (rec["decode_steps"] + engines) \
+                or rec["decode_steps"] < 1:
+            fail(f"{arch} serve: {n['paged']} paged launches for "
+                 f"{rec['decode_steps']} decode steps + {engines} warm-ups "
+                 f"of {Lr} layers")
+        if n["dense"] or n["wkv"]:
+            fail(f"{arch} serve launched dense decode or WKV: {n}")
+        log(f"# {arch} serve (G = {cfg.q_group}): flash {n['flash']} = "
+            f"{Lr} x {rec['prefills']} prefills, paged {n['paged']} = {Lr} x "
+            f"({rec['decode_steps']} decode steps + {engines} warm-ups)")
+
+
+def sweep_phase(scratch) -> None:
+    """Phase 17: the design-space sweep as a subprocess on the host (no
+    CUDA device visible to it or its workers), then again on the same
+    store, which must be all cache hits."""
+    env = dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+    store = os.path.join(scratch, "sweeps")
+    reports = []
+    for run in ("first", "rerun"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.sweep", *SWEEP_ARGS,
+             "--store", store], capture_output=True, text=True, env=env,
+            cwd=ROOT, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"sweep {run}: exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        rep = json.loads(proc.stdout)
+        log(f"# sweep {run}: {wall:.2f} s host wall for the subprocess; "
+            f"report: " + json.dumps(rep))
+        reports.append(rep)
+    first, rerun = reports
+    if (first["spec_hash"], first["points"], first["cells_total"],
+            first["cells_run"]) != (SWEEP_HASH, SWEEP_POINTS, SWEEP_CELLS,
+                                    SWEEP_CELLS):
+        fail(f"sweep: spec_hash {first['spec_hash']}, {first['points']} "
+             f"points in {first['cells_run']} of {first['cells_total']} "
+             f"cells; expected {SWEEP_HASH}, {SWEEP_POINTS} in "
+             f"{SWEEP_CELLS}")
+    if (rerun["cells_cached"], rerun["cells_total"], rerun["cells_run"]) \
+            != (SWEEP_CELLS, SWEEP_CELLS, 0) \
+            or rerun["points"] != first["points"] \
+            or rerun["records"] != first["records"] \
+            or rerun["frontier_areas"] != first["frontier_areas"]:
+        fail(f"sweep rerun: {rerun['cells_cached']} of "
+             f"{rerun['cells_total']} cached, {rerun['cells_run']} run")
+    log(f"# sweep: spec_hash {first['spec_hash']}, {first['points']} points "
+        f"in {first['cells_total']} cells, {first['records']} records, "
+        f"{first['points_per_s']} points/s over {first['elapsed_s']} s "
+        f"(host); rerun {rerun['cells_cached']} of {rerun['cells_total']} "
+        f"cells cached in {rerun['elapsed_s']} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -1025,9 +1171,9 @@ def main() -> None:
         fail(f"non-causal flash attention disagrees: {err}")
     fl_err = max(fl_err, err)
 
-    def time_flash(S):
-        flops, nbytes = flash_work(1, S, S, 16, 2, 0)
-        cases = [flash_case(torch, gen, 1, S, S, 16, 2, dev)
+    def time_flash(S, H=16, Hkv=2):
+        flops, nbytes = flash_work(1, S, S, H, Hkv, 0)
+        cases = [flash_case(torch, gen, 1, S, S, H, Hkv, dev)
                  for _ in range(copies(nbytes))]
         lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
 
@@ -1043,7 +1189,7 @@ def main() -> None:
             "library_device_ms": timer.device(sdpa, lib_cases),
         }
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        log(f"# flash time S={S} H=16 Hkv=2 ({len(cases)} input sets): "
+        log(f"# flash time S={S} H={H} Hkv={Hkv} ({len(cases)} input sets): "
             + json.dumps(res))
         return res
 
@@ -1073,10 +1219,11 @@ def main() -> None:
     if g_err > 1e-6:
         fail(f"poisoned trash/tail blocks leaked into the output: {g_err}")
 
-    def time_paged(lengths, nb=None):
-        first = paged_case(torch, gen, lengths, 8, 16, 2, dev, nb)
+    def time_paged(lengths, nb=None, H=16, Hkv=2):
+        first = paged_case(torch, gen, lengths, 8, H, Hkv, dev, nb)
         nbytes = 2 * first[1].numel() * first[1].element_size()  # K, V
-        cases = [first] + [paged_case(torch, gen, lengths, 8, 16, 2, dev, nb)
+        cases = [first] + [paged_case(torch, gen, lengths, 8, H, Hkv, dev,
+                                      nb)
                            for _ in range(copies(nbytes) - 1)]
         tbl = first[3]
         parts = timer.device_by_kernel(dec_ops.decode_attention_paged, cases)
@@ -1088,9 +1235,9 @@ def main() -> None:
             "library_ms": None,     # PyTorch has no paged attention call
         }
         res["bound_ms"], res["bound_by"] = bound(*paged_work(
-            lengths, len(lengths), tbl.shape[1], 16, 2))
+            lengths, len(lengths), tbl.shape[1], H, Hkv))
         log(f"# paged time B={len(lengths)} max_len={max(lengths)} "
-            f"nb={tbl.shape[1]} ({len(cases)} input sets): "
+            f"nb={tbl.shape[1]} H={H} Hkv={Hkv} ({len(cases)} input sets): "
             + json.dumps(res) + "; device ms by kernel: "
             + json.dumps({name[:50]: t for name, t in parts.items()}))
         return res
@@ -1101,6 +1248,40 @@ def main() -> None:
     rows["paged"] = time_paged([544] * 8, nb=73)
     time_paged(lengths)
     time_paged([4096] * 32)
+
+    # 3b') flash and paged decode at the 14B configurations' heads: against
+    #      their plain versions at the serve's prefill, ragged and chunk
+    #      shapes (flash) and mixed lengths (paged), then timed at phase
+    #      16's shapes
+    for arch, (H, Hkv) in HEADS_14B.items():
+        for (B, Sq, Skv, off) in [(1, 512, 512, 0), (1, 509, 509, 0),
+                                  (2, 70, 300, 230), (1, 1, 449, 448),
+                                  (1, 16, 464, 448), (1, 64, 576, 512)]:
+            q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev)
+            out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"# flash {arch} H={H} Hkv={Hkv} B={B} Sq={Sq} Skv={Skv} "
+                f"off={off}: max_abs_err {err:.3e}")
+            if not math.isfinite(err) or err > KERNEL_ATOL:
+                fail(f"flash at {arch}'s heads disagrees: {err}")
+            fl_err = max(fl_err, err)
+        q, pk, pv, tbl, lens = paged_case(torch, gen, lengths, 8, H, Hkv,
+                                          dev)
+        out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - dec_ops.decode_attention_paged_plain(
+            q, pk, pv, tbl, lens).float()).abs().max().item()
+        log(f"# paged {arch} H={H} Hkv={Hkv} lengths={lengths}: "
+            f"max_abs_err {err:.3e}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"paged decode at {arch}'s heads disagrees: {err}")
+        dec_err = max(dec_err, err)
+        rows["flash"].setdefault("shapes_14b", {})[arch] = time_flash(
+            512, H, Hkv)
+        rows["paged"].setdefault("shapes_14b", {})[arch] = time_paged(
+            [544] * 8, nb=73, H=H, Hkv=Hkv)
     log(f"# phase kernels (flash, paged): {time.perf_counter() - t0:.1f} s")
 
     # 3c) flash attention at chunked-prefill shapes: Sq < 64 and offsets
@@ -1224,7 +1405,10 @@ def main() -> None:
 
     def drive(path, fn):
         """Run one path with every launch count set to 0 just before it and
-        read just after; returns (its result, its launch counts)."""
+        read just after; returns (its result, its launch counts). What an
+        earlier path left in reference cycles (its engines, its weights) is
+        collected first, so the peak memory printed is this path's."""
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -1339,6 +1523,26 @@ def main() -> None:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     del weights
+    torch.cuda.empty_cache()
+
+    # 15) the 14B models: full width and depth, kernel vs plain vs fp32
+    t0 = time.perf_counter()
+    dense14b_model_phase(torch, dev, gen, get_config)
+    log(f"# phase 14B models: {time.perf_counter() - t0:.1f} s")
+
+    # 16) the 14B serves: phase 5's traffic at 40 layers
+    t0 = time.perf_counter()
+    dense14b_serves(serve, drive, sla, get_config)
+    log(f"# phase 14B serves: {time.perf_counter() - t0:.1f} s")
+
+    # 17) the design-space sweep on the host
+    t0 = time.perf_counter()
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        sweep_phase(scratch)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"# phase sweep: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> -> ModelConfig (full + smoke).
 
 The port registers the architectures whose families it serves: the
-dense-attention family's ``qwen2.5-3b`` and the RWKV-6 family's
-``rwkv6-1.6b``."""
+dense-attention family's ``qwen2.5-3b``, ``qwen3-14b`` (qk_norm) and
+``phi3-medium-14b``, and the RWKV-6 family's ``rwkv6-1.6b``."""
 from __future__ import annotations
 
 import importlib
@@ -10,7 +10,9 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = {
+    "phi3-medium-14b": "repro_torch.configs.phi3_medium_14b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1_6b",
 }
 

@@ -19,9 +19,18 @@
 //   - GQA row packing: a CTA serves one (batch, KV head) pair and 64
 //     packed query rows; row r is position p0 + r/G of query head
 //     hk*G + r%G. The G heads of one position are contiguous in q, so the
-//     Q tile is 64/G contiguous [G,128] blocks (one TMA box), each K/V
-//     tile is read once for all G heads, and a 16-row chunk at G = 8 fills
-//     128 rows instead of 16 of 64;
+//     Q tile is P = floor(64/G) contiguous [G,128] blocks (one TMA box),
+//     each K/V tile is read once for all G heads, and a 16-row chunk at
+//     G = 8 fills 128 rows instead of 16 of 64;
+//   - any G from 1 to 16 (H % Hkv == 0): where G does not divide 64 the
+//     box fills G*P < 64 rows (60 at G = 5, qwen3-14b's 40/8 heads) and
+//     the rows past it are dead. They are zeroed in shared memory once,
+//     before the Q box lands (the box never writes them), so their scores
+//     are finite and touch no live row; their outputs are never stored;
+//     and bar_q expects the box's own 2*G*P*128 bytes. Padding each
+//     position's heads to the next power of two instead would waste 3 of
+//     every 8 rows at G = 5 (40 positions of 64 rows against 12 of 60)
+//     and launch half as many CTAs again;
 //   - one consumer warpgroup (4 warps, 16 rows each) runs both products
 //     on wgmma with the accumulators in registers: S = Q K^T as 8
 //     m64n64k16 (Q and K K-major from shared memory), then O += P V as 4
@@ -261,7 +270,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                 int log2g, int q_offset, int causal, float scale_log2) {
+                 int G, int q_offset, int causal, float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1 KB
@@ -273,8 +282,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   auto v_full = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
   auto v_empty = [&](int s) { return bar_q + 8u * (1 + 3 * STAGES + s); };
 
-  const int G = 1 << log2g;
-  const int P = BM >> log2g;              // query positions per CTA
+  const int P = BM / G;                   // query positions per CTA
+  const int live_rows = G * P;            // packed rows the Q box fills
   const int n_qt = (Sq + P - 1) / P;
   const int p0 = (n_qt - 1 - int(blockIdx.x)) * P;   // heaviest first
   const int hk = blockIdx.y;
@@ -294,11 +303,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  // rows the Q box does not fill (64 % G != 0): zeros, made visible
+  // to the async proxy (wgmma reads them) before any thread goes on
+  for (int i = live_rows * 8 + tid; i < BM * 8; i += NTHREADS) {
+    *reinterpret_cast<uint4*>(smem + i * 16) = make_uint4(0, 0, 0, 0);
+    *reinterpret_cast<uint4*>(smem + Q_HALF + i * 16) = make_uint4(0, 0, 0, 0);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   if (tid >= NCONSUMER) {                 // the producer warp
     if (tid == NCONSUMER) {
-      mbar_expect_tx(bar_q, 2 * Q_HALF);
+      mbar_expect_tx(bar_q, 2u * live_rows * 128u);
       tma_load(sQ, &map_q, bar_q, 0, hk * G, p0, b);
       tma_load(sQ + Q_HALF, &map_q, bar_q, 64, hk * G, p0, b);
       for (int j = 0; j < n_kv; ++j) {
@@ -322,8 +338,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int rA = warp * 16 + (lane >> 2);    // this thread's rows: rA, rA+8
-  const int posA = q_offset + p0 + (rA >> log2g);
-  const int posB = q_offset + p0 + ((rA + 8) >> log2g);
+  const int posA = q_offset + p0 + rA / G;
+  const int posB = q_offset + p0 + (rA + 8) / G;
   const int cq = 2 * (lane & 3);             // first of its column pairs
   const int pos_min = q_offset + p0;
   // a masked score, raw: scaled it is NEG_INF (up to rounding)
@@ -482,16 +498,27 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         pack_bf16(acc_o[4 * i + 2] * invB, acc_o[4 * i + 3] * invB);
   }
   consumer_bar();
-  for (int idx = tid; idx < BM * (DH / 8); idx += NCONSUMER) {
-    const int r = idx >> 4;
-    const int c = idx & 15;
-    const int pos = p0 + (r >> log2g);
+  // thread t stores 16-byte chunk t % 16 of rows t / 16, +8, +16, ...:
+  // row r's position p0 + r / G and head r % G advance by 8 / G and 8 % G
+  // (with a carry) from one of its rows to the next; dead rows are skipped
+  const int c = tid & 15;
+  int r = tid >> 4;
+  int pos = p0 + r / G, head = r % G;
+  const int pos_step = (NCONSUMER / 16) / G;
+  const int head_step = (NCONSUMER / 16) % G;
+  for (; r < live_rows; r += NCONSUMER / 16) {
     if (pos < Sq) {
       const uint4 val = *reinterpret_cast<const uint4*>(
           stage + r * 256 + ((c ^ (r & 7)) << 4));
       *reinterpret_cast<uint4*>(
-          o + ((size_t(b) * Sq + pos) * H + hk * G + (r & (G - 1))) * DH +
-          c * 8) = val;
+          o + ((size_t(b) * Sq + pos) * H + hk * G + head) * DH + c * 8) =
+          val;
+    }
+    pos += pos_step;
+    head += head_step;
+    if (head >= G) {
+      head -= G;
+      ++pos;
     }
   }
 }
@@ -540,7 +567,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int Hh,
 }  // namespace
 
 // q [B,Sq,H,128], k/v [B,Skv,Hkv,128], o [B,Sq,H,128]: contiguous bf16,
-// 16-byte aligned; G = H/Hkv in {1, 2, 4, 8, 16}. Returns
+// 16-byte aligned; G = H/Hkv from 1 to 16. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes
 // it does not take).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -558,9 +585,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (Hkv <= 0 || H % Hkv || Skv <= 0 || q_offset < 0)
     return int(cudaErrorInvalidValue);
   const int G = H / Hkv;
-  int log2g = 0;
-  while ((1 << log2g) < G) ++log2g;
-  if ((1 << log2g) != G || G > 16) return int(cudaErrorInvalidValue);
+  if (G > 16) return int(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return 0;
   const int P = BM / G;
   CUtensorMap mq, mk, mv;
@@ -571,7 +596,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   dim3 grid((Sq + P - 1) / P, Hkv, B);
   flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
                      static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, log2g,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, G,
       q_offset, causal, scale * LOG2E);
   return int(cudaGetLastError());
 }

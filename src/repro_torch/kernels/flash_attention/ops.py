@@ -16,8 +16,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-# query heads per KV head the kernel packs into its 64-row tiles
-KERNEL_GROUPS = (1, 2, 4, 8, 16)
+# most query heads per KV head the kernel packs into its 64-row tiles
+MAX_GROUP = 16
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
@@ -47,7 +47,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Causal (or full) GQA attention. q: [B,Sq,H,dh]; k, v:
     [B,Skv,Hkv,dh] un-expanded (the kernel maps q head h to KV head
     h // (H/Hkv), and packs the H/Hkv heads of a group into its rows, so
-    it takes H/Hkv in KERNEL_GROUPS and dh = 128). Returns [B,Sq,H,dh] in
+    it takes H/Hkv up to MAX_GROUP and dh = 128). Returns [B,Sq,H,dh] in
     q.dtype."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
@@ -62,9 +62,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     Skv, Hkv = k.shape[1], k.shape[2]
     if dh != 128:
         raise ValueError(f"flash_attention kernel: head dim {dh} != 128")
-    if H // Hkv not in KERNEL_GROUPS:
+    if H // Hkv > MAX_GROUP:
         raise ValueError(f"flash_attention kernel: {H // Hkv} query heads per "
-                         f"KV head, not one of {KERNEL_GROUPS}")
+                         f"KV head, more than {MAX_GROUP}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     o = torch.empty_like(q)

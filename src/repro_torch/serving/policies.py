@@ -18,8 +18,7 @@ scenarios:
 fed by a ``repro_torch.workloads`` scenario through ``Cluster.serve``.
 
 This is the port's copy of ``repro.serving.policies``, every policy
-included; ``split_pool`` is copied in from the reference's
-``core.rate_matching``.
+included.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ from fractions import Fraction
 from typing import (Any, List, Optional, Protocol, TYPE_CHECKING, Tuple,
                     runtime_checkable)
 
+from repro_torch.core.rate_matching import split_pool
 from repro_torch.serving.elastic import ElasticConfig, ElasticRateMatcher
 from repro_torch.serving.request import Request
 
@@ -236,22 +236,6 @@ class KVLocalityRouter:
 # RateMatcher: pool sizing over time
 # --------------------------------------------------------------------------
 
-def split_pool(n_engines: int, alpha) -> Tuple[int, int]:
-    """Bridge Algorithm 2's analytic instance ratio into runtime pool sizing:
-    split ``n_engines`` role-free engines into (n_prefill, n_decode) closest
-    to ``alpha`` = prefill:decode (any positive ``Fraction`` or float),
-    keeping at least one engine in each role. (Copied from the reference's
-    ``core.rate_matching``, whose design-space solver the port does not
-    need.)"""
-    assert n_engines >= 2, "need at least one engine per role"
-    a = float(alpha)
-    assert a > 0, alpha
-    # alpha = n_pre / n_dec  ->  n_pre = n * a / (1 + a), rounded to nearest
-    n_pre = int(round(n_engines * a / (1.0 + a)))
-    n_pre = min(max(n_pre, 1), n_engines - 1)
-    return n_pre, n_engines - n_pre
-
-
 @runtime_checkable
 class RateMatcher(Protocol):
     """May also define ``prepare(cluster)``, called once before the first
@@ -357,5 +341,5 @@ __all__ = [
     "PrefixAffinityScheduler", "ChunkedPiggybackScheduler",
     "Router", "FirstFitRouter", "RoundRobinRouter", "LeastLoadedRouter",
     "KVLocalityRouter",
-    "RateMatcher", "ElasticPolicy", "StaticSplitRateMatcher", "split_pool",
+    "RateMatcher", "ElasticPolicy", "StaticSplitRateMatcher",
 ]

@@ -104,13 +104,67 @@ def test_flash_kernel_never_reads_the_next_sequence(cuda, causal):
     assert (out[:1].float() - ref.float()).abs().max().item() <= ATOL
 
 
+# the 14B configurations' heads: qwen3-14b 40/8 (G = 5, no divisor of the
+# 64-row tile: 12 positions fill 60 rows) and phi3-medium-14b 40/10 (G = 4
+# over 10 KV heads)
+HEADS_14B = [(40, 8), (40, 10)]
+
+
+@pytest.mark.parametrize("H,Hkv", HEADS_14B)
+@pytest.mark.parametrize("B,Sq,Skv,causal,off", [
+    (1, 512, 512, True, 0),             # the serve's prefill
+    (1, 509, 509, True, 0),             # ragged: no multiple of a tile
+    (2, 70, 300, True, 230),            # ragged chunk at an offset, B = 2
+    (1, 1, 449, True, 448),             # chunk shapes Sq = 1, 16, 64
+    (1, 16, 464, True, 448),
+    (1, 64, 112, True, 48),
+    (1, 64, 576, True, 512),
+    (1, 1100, 1177, True, 77),          # long: many K/V tiles per CTA
+    (2, 130, 70, False, 0),             # non-causal, ragged both ways
+])
+def test_flash_kernel_at_the_14b_heads(cuda, H, Hkv, B, Sq, Skv, causal,
+                                       off):
+    """Flash at qwen3-14b's and phi3-medium-14b's head geometry against its
+    plain version; at G = 5 the four dead rows of each tile must neither
+    disturb a live row nor be written (positions p0 + 12 belong to the
+    next tile)."""
+    rng = np.random.default_rng(47)
+    q = _bf16(rng, (B, Sq, H, 128), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("G", [3, 5, 6, 7, 9, 11, 12, 13, 15])
+def test_flash_kernel_packs_every_group_size(cuda, G):
+    """Every G up to 16 that divides no 64-row tile: B = 2, Sq no multiple
+    of the floor(64/G) positions of a tile, q_offset no multiple of the
+    tile; the dead rows of each tile reach no output."""
+    rng = np.random.default_rng(53 + G)
+    B, Sq, Skv, Hkv, off = 2, 67, 150, 2, 83
+    q = _bf16(rng, (B, Sq, G * Hkv, 128), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 128), cuda)
+    out = flash_attention(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
 def test_flash_kernel_refuses_group_sizes_it_does_not_pack(cuda):
-    """The kernel packs G in {1, 2, 4, 8, 16} heads per KV head into its
-    64-row tiles, and takes dh = 128 only."""
-    q = torch.zeros((1, 8, 6, 128), device=cuda, dtype=torch.bfloat16)
+    """The kernel packs up to 16 heads per KV head into its 64-row tiles,
+    and takes dh = 128 only."""
     k = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                          # G = 3
-        flash_attention(q, k, k)
+    q17 = torch.zeros((1, 8, 34, 128), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # G = 17
+        flash_attention(q17, k, k)
     q32 = torch.zeros((1, 8, 64, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                          # G = 32
         flash_attention(q32, k, k)
@@ -206,6 +260,41 @@ def test_paged_kernel_poisoned_blocks_at_the_serve_shape(cuda, H):
     assert torch.equal(out1, out2)
 
 
+@pytest.mark.parametrize("H,Hkv", HEADS_14B)
+@pytest.mark.parametrize("nb", [73, 128])
+def test_paged_kernel_at_the_14b_heads(cuda, H, Hkv, nb):
+    """Paged decode at 40/8 (G = 5: Q padded to 8 rows of the MMA) and
+    40/10 heads (a grid 10 KV heads wide): lengths at the edges of the
+    shape's split (1, one split, one past it, several, the serve's 544,
+    the whole window) against the plain version; then the trash block and
+    every tail past a length poisoned (+-1e4, NaN in the trash block's
+    second half) must leave the output bit-unchanged."""
+    rng = np.random.default_rng(59)
+    B, Bs = 8, 8
+    T = _split_tokens(B, Hkv, nb, Bs)
+    lengths = (1, T, T + 1, 2 * T - 1, 3 * T + 1, 544, nb * Bs, 9)
+    q = _bf16(rng, (B, H, 128), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, nb=nb)
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    pool_k2, pool_v2 = pool_k.clone(), pool_v.clone()
+    pool_k2[0], pool_v2[0] = 1e4, -1e4
+    pool_k2[0, 4:], pool_v2[0, 4:] = float("nan"), float("nan")
+    for b, n in enumerate(lengths):
+        if n % Bs:
+            last = int(tables[b, (n - 1) // Bs])
+            pool_k2[last, n % Bs:] = 77.0
+            pool_v2[last, n % Bs:] = -77.0
+    out2 = decode_attention_paged(q, pool_k2, pool_v2, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
 def test_paged_kernel_garbage_block_immunity(cuda):
     """Trash-block contents and positions past a length must not leak:
     the kernel never reads them, so the output is bit-identical."""
@@ -291,6 +380,31 @@ def test_dense_kernel_split_edges(cuda, H, B, Smax, T):
         k2[b, n:], v2[b, n:] = 1e4, -1e4
         if b % 2:
             k2[b, n + 3:], v2[b, n + 3:] = float("nan"), float("nan")
+    out2 = decode_attention(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("H,Hkv", HEADS_14B)
+@pytest.mark.parametrize("B,Smax", [(8, 584), (2, 584), (4, 100)])
+def test_dense_kernel_at_the_14b_heads(cuda, H, Hkv, B, Smax):
+    """Dense decode at 40/8 and 40/10 heads: lengths 0, 1, at and around
+    the shape's split boundaries, Smax and past it, against the plain
+    version; then every row at or past a length poisoned leaves the output
+    bit-unchanged."""
+    T = split_tokens(B, Hkv, Smax)
+    rng = np.random.default_rng(61)
+    edges = [0, 1, T - 1, T, T + 1, Smax, Smax + 5, 2 * T + 1]
+    lengths = tuple(edges[:B])
+    q, k, v, lens = _dense_case(rng, B, Smax, H, Hkv, lengths, cuda)
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
     out2 = decode_attention(q, k2, v2, lens)
     torch.cuda.synchronize()
     assert torch.equal(out, out2)
