@@ -107,10 +107,28 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      host (no CUDA in the subprocess); fails unless its ``spec_hash`` is
      4944b71631008786 and it evaluated 695,418 points in 240 cells, and a
      rerun is 240 cache hits with the same points and frontier areas;
-     prints records, frontier areas, points per second and host seconds.
+     prints records, frontier areas, points per second and host seconds;
+ 18. granite model: full-width, full-depth granite-moe-1b-a400m (24
+     layers, 16/8 heads of 64, every FFN a capacity-based MoE of 32
+     experts top-8), bf16, random weights from seed 0, checked as phase 4
+     (three ways, the same rule), with each path's MoE routing against
+     the float32 reference's (layer x token pairs routed to another top-k
+     set) and the tokens each prefill drops;
+ 19. granite serve: ``serve.main --arch granite-moe-1b-a400m`` with phase
+     5's traffic; fails unless all 16 complete, flash ran exactly 24 times
+     per prefill and paged decode exactly 24 times per decode step and
+     per engine's warm-up step (both at head dim 64), neither dense decode
+     nor WKV ran, and each handoff carried 24 MiB;
+ 20. granite profile: phase 11 for granite's engine, with the MoE FFN's
+     device time, share and launches per step.
 
-Every path (5-8, 10, 12-14, 16) runs with every kernel's launch count set
-to 0 just before it and read just after; each phase prints its seconds.
+Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
+16/8 heads) against their plain versions at the serve's shapes and their
+edges, and times each beside its bound and SDPA's device time.
+
+Every path (5-8, 10, 12-14, 16, 19) runs with every kernel's launch count
+set to 0 just before it and read just after; each phase prints its
+seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -155,6 +173,9 @@ SIM_RATIO = (0.1, 10.0)
 # the 14B dense configurations' (query, KV) heads: qwen3-14b's G = 5 packs
 # 12 positions into 60 of a flash tile's 64 rows
 HEADS_14B = {"qwen3-14b": (40, 8), "phi3-medium-14b": (40, 10)}
+# granite-moe-1b-a400m's (query, KV) heads, of dh 64
+GRANITE = "granite-moe-1b-a400m"
+HEADS_GRANITE = (16, 8)
 # phase 17's design grid, its content address and the perf-model points it
 # evaluates (both deterministic: the JAX package's sweep gives the same)
 SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
@@ -248,8 +269,9 @@ class Timer:
 
 def ptxas_entry(line: str) -> str:
     """The kernel a ptxas "Compiling entry function '_ZN...'" line names:
-    the last name of its mangled nested name, with the template arguments
-    of the WKV kernel (``wkv_kernel<64, bf16>``)."""
+    the last name of its mangled nested name, with its template arguments:
+    the WKV kernel's (``wkv_kernel<64, bf16>``), the attention kernels'
+    head dim (``flash_fwd_kernel<64>``)."""
     m = line.split("'")[1]
     i, name = (3 if m.startswith("_ZN") else 2), m
     while i < len(m) and m[i].isdigit():
@@ -258,10 +280,12 @@ def ptxas_entry(line: str) -> str:
             j += 1
         n = int(m[i:j])
         name, i = m[j:j + n], j + n
-    targs = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)E", m[i:])
-    if targs:
+    targs = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)?E", m[i:])
+    if targs and targs.group(2):
         name += f"<{targs.group(1)}, " + (
             "fp32" if targs.group(2) == "f" else "bf16") + ">"
+    elif targs:
+        name += f"<{targs.group(1)}>"
     return name
 
 
@@ -281,26 +305,23 @@ def copies(nbytes: float) -> int:
     return max(2, min(64, math.ceil(2 * L2_BYTES / nbytes)))
 
 
-def flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev):
-    dh = 128
+def flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, dh=128):
     mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(  # noqa
         torch.bfloat16)
     return mk(B, Sq, H, dh), mk(B, Skv, Hkv, dh), mk(B, Skv, Hkv, dh)
 
 
-def flash_work(B, Sq, Skv, H, Hkv, q_offset):
-    dh = 128
+def flash_work(B, Sq, Skv, H, Hkv, q_offset, dh=128):
     pairs = sum(min(Skv, q_offset + i + 1) for i in range(Sq))  # causal
     flops = 4.0 * B * H * dh * pairs
     nbytes = 2.0 * dh * (2 * B * Sq * H + 2 * B * Skv * Hkv)
     return flops, nbytes
 
 
-def paged_case(torch, gen, lengths, Bs, H, Hkv, dev, nb=None):
+def paged_case(torch, gen, lengths, Bs, H, Hkv, dev, nb=None, dh=128):
     """Pool with every sequence's blocks at shuffled ids, and a table of
     ``nb`` columns (default: the pow2 width the engine's window takes; pad
     columns -> trash block 0)."""
-    dh = 128
     B = len(lengths)
     pages = [-(-n // Bs) for n in lengths]
     if nb is None:
@@ -321,8 +342,7 @@ def paged_case(torch, gen, lengths, Bs, H, Hkv, dev, nb=None):
     return q, pool_k, pool_v, tables.to(dev), lens
 
 
-def paged_work(lengths, B, nb, H, Hkv):
-    dh = 128
+def paged_work(lengths, B, nb, H, Hkv, dh=128):
     live = float(sum(lengths))
     flops = 4.0 * live * H * dh
     nbytes = (2.0 * B * H * dh * 2            # q in, out
@@ -331,9 +351,8 @@ def paged_work(lengths, B, nb, H, Hkv):
     return flops, nbytes
 
 
-def dense_case(torch, gen, lengths, Smax, H, Hkv, dev):
-    """q, dense caches [B,Smax,Hkv,128] and int32 lengths."""
-    dh = 128
+def dense_case(torch, gen, lengths, Smax, H, Hkv, dev, dh=128):
+    """q, dense caches [B,Smax,Hkv,dh] and int32 lengths."""
     B = len(lengths)
     mk = lambda *s: torch.randn(s, generator=gen, device=dev).to(  # noqa
         torch.bfloat16)
@@ -341,10 +360,9 @@ def dense_case(torch, gen, lengths, Smax, H, Hkv, dev):
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
-def dense_work(lengths, B, H, Hkv):
+def dense_work(lengths, B, H, Hkv, dh=128):
     """What the dense decode function must do for these lengths: the live
     K/V rows once (not the Smax-wide cache), q in, out, lengths."""
-    dh = 128
     live = float(sum(lengths))
     flops = 4.0 * live * H * dh
     nbytes = 2.0 * B * H * dh * 2 + 2.0 * 2 * live * Hkv * dh + 4.0 * B
@@ -501,9 +519,12 @@ def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
     return err_max, row
 
 
-def hold(torch, what, L, lk, lp, lr):
+def hold(torch, what, L, lk, lp, lr, vocab):
     """The model rule: the kernel path's logits no farther from the float32
-    reference than twice the plain bf16 path's, plus 1e-3 of the scale."""
+    reference than twice the plain bf16 path's, plus 1e-3 of the scale.
+    Only the first ``vocab`` columns count: padded vocabulary rows hold
+    the mask value (-1e30), which would swamp the scale."""
+    lk, lp, lr = (t[..., :vocab] for t in (lk, lp, lr))
     scale = lr.abs().max().item()
     ek = (lk - lr).abs().max().item() / scale
     ep = (lp - lr).abs().max().item() / scale
@@ -523,6 +544,21 @@ def upcast(params):
             for k, v in params.items()}
 
 
+def upcast_tree(tree):
+    """A block's leaves in float32, nested dicts (an MoE layer's ``moe``)
+    kept."""
+    return {n: (upcast_tree(t) if isinstance(t, dict) else t.float())
+            for n, t in tree.items()}
+
+
+def n_params(params) -> int:
+    def count(tree):
+        return sum(count(t) if isinstance(t, dict) else t.numel()
+                   for t in tree.values())
+    return count({k: v for k, v in params.items() if k != "blocks"}) + sum(
+        count(b) for b in params["blocks"])
+
+
 class UpcastBlocks:
     """The bf16 blocks, each upcast to float32 only while the model walks
     it: a float32 reference of a 14B model fits beside its bf16 weights
@@ -536,10 +572,63 @@ class UpcastBlocks:
 
     def __iter__(self):
         for b in self.blocks:
-            yield {n: t.float() for n, t in b.items()}
+            yield upcast_tree(b)
 
 
-def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
+class RoutingTap:
+    """While on, records each MoE call's routing mask [T, E] and dropped
+    count: ``moe._route`` and ``moe._local_moe`` wrapped for the model
+    check only (no serve runs under it). ``take`` returns the calls since
+    the last ``take``: (masks in call order, drops summed)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        route, local = self.orig = (self.moe._route, self.moe._local_moe)
+
+        def tap_route(x, router_w, cfg):
+            out = route(x, router_w, cfg)
+            self.calls.append(("mask", out[1].clone()))
+            return out
+
+        def tap_local(*args, **kw):
+            y, aux = local(*args, **kw)
+            self.calls.append(("dropped", aux["moe_dropped"].clone()))
+            return y, aux
+
+        self.moe._route, self.moe._local_moe = tap_route, tap_local
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route, self.moe._local_moe = self.orig
+
+    def take(self):
+        masks = [v for k, v in self.calls if k == "mask"]
+        dropped = sum(float(v) for k, v in self.calls if k == "dropped")
+        self.calls = []
+        return masks, dropped
+
+
+def report_routing(name, what, runs) -> None:
+    """The kernel and plain bf16 paths' routing against the float32
+    reference's: flips are (layer, token) pairs whose top-k expert set
+    differs from the reference's; drops are summed over the layers."""
+    (mk, dk), (mp, dp), (mr, dr) = runs
+    pairs = sum(m.shape[0] for m in mr)
+
+    def flips(masks):
+        return sum(int((a != b).any(-1).sum()) for a, b in zip(masks, mr))
+
+    log(f"# model {name} {what}: routing against fp32 (layer x token pairs "
+        f"with another top-k set, of {pairs}): kernel {flips(mk)}, plain "
+        f"bf16 {flips(mp)}; moe_dropped summed over layers: kernel "
+        f"{dk:.0f}, plain bf16 {dp:.0f}, fp32 {dr:.0f}")
+
+
+def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4,
+                tap=None):
     """Full-width model check; returns the bf16 weights (phase 12 fits the
     simulator on them). Prefill one prompt, then run paged decode
     steps for 4 slots that hold its cache, three ways on the same weights,
@@ -549,7 +638,9 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
     into logit errors of a few percent whatever the attention, so the
     kernel path is held to the plain bf16 path's own distance from the
     float32 reference: it fails on non-finite logits, or on an error above
-    twice the plain path's plus 1e-3 of the logit scale."""
+    twice the plain path's plus 1e-3 of the logit scale. With ``tap`` (a
+    ``RoutingTap`` that is on), each step's MoE routing of the three
+    paths is reported as well."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import init_torch_params
     params = init_torch_params(cfg, 0, device=dev)
@@ -559,15 +650,27 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
     prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
                            device=dev)
 
+    routes = []
+
+    def run(fn, *args, **kw):
+        out = fn(*args, **kw)
+        if tap is not None:
+            routes.append(tap.take())
+        return out
+
     def check(what, lk, lp, lr):
-        hold(torch, what, cfg.num_layers, lk, lp, lr)
+        hold(torch, f"{cfg.name} {what}", cfg.num_layers, lk, lp, lr,
+             cfg.vocab_size)
+        if tap is not None:
+            report_routing(cfg.name, what, routes[-3:])
 
     with torch.inference_mode():
-        lk, cache = T.prefill_full(params, cfg, {"tokens": prompt},
-                                   impl="kernel")
-        lp, _ = T.prefill_full(params, cfg, {"tokens": prompt}, impl="plain")
-        lr, cache32 = T.prefill_full(p32, c32, {"tokens": prompt},
-                                     impl="plain")
+        lk, cache = run(T.prefill_full, params, cfg, {"tokens": prompt},
+                        impl="kernel")
+        lp, _ = run(T.prefill_full, params, cfg, {"tokens": prompt},
+                    impl="plain")
+        lr, cache32 = run(T.prefill_full, p32, c32, {"tokens": prompt},
+                          impl="plain")
         check(f"prefill S={S}", lk, lp, lr)
         Lr, nbk, slots, extra = cfg.num_layers, S // Bs, 4, 8
         width = 1
@@ -590,12 +693,12 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4):
         pos = torch.full((slots,), S, dtype=torch.int32, device=dev)
         toks = torch.full((slots,), int(lr.argmax()), device=dev)
         for step in range(steps):
-            dk, _, _ = T.decode_step_paged(params, cfg, pools[0], tables,
-                                           pos, toks, impl="kernel")
-            dp, _, _ = T.decode_step_paged(params, cfg, pools[1], tables,
-                                           pos, toks, impl="plain")
-            dr, _, _ = T.decode_step_paged(p32, c32, pools[2], tables, pos,
-                                           toks, impl="plain")
+            dk, _, _ = run(T.decode_step_paged, params, cfg, pools[0],
+                           tables, pos, toks, impl="kernel")
+            dp, _, _ = run(T.decode_step_paged, params, cfg, pools[1],
+                           tables, pos, toks, impl="plain")
+            dr, _, _ = run(T.decode_step_paged, p32, c32, pools[2], tables,
+                           pos, toks, impl="plain")
             check(f"decode step {step}", dk, dp, dr)
             pos, toks = pos + 1, dr[:, :cfg.vocab_size].argmax(-1)
     del p32, pools
@@ -642,7 +745,7 @@ def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
         out = [T.prefill_full(p, c, {"tokens": prompt}, impl=impl)
                for p, c, impl in runs]
         hold(torch, f"{cfg.name} prefill B={B} S={S}", cfg.num_layers,
-             *(lg for lg, _ in out))
+             *(lg for lg, _ in out), cfg.vocab_size)
         caches = [cache for _, cache in out]
         same_state(f"prefill B={B} S={S}", caches[0], caches[1])
         toks = out[2][0][:, :cfg.vocab_size].argmax(-1)
@@ -656,10 +759,19 @@ def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
             if step == 0:
                 same_state("decode step 0", caches[0], twin)
             hold(torch, f"{cfg.name} decode step {step}", cfg.num_layers,
-                 *logits)
+                 *logits, cfg.vocab_size)
             toks = logits[2][:, :cfg.vocab_size].argmax(-1)
     del p32, caches, twin
     return params
+
+
+def region_kernels(event):
+    """The durations (us) of the device kernels launched under a profiler
+    event, its CPU descendants' included."""
+    out = [k.duration for k in event.kernels]
+    for child in event.cpu_children:
+        out += region_kernels(child)
+    return out
 
 
 def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
@@ -670,12 +782,16 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     clock and then again under ``torch.profiler``; the same for two
     prefills. Prints each kind's host-clock step time, the device time of
     the kernels inside it, the device's idle share and the kernels that
-    take the most time. Reports "not measured" rather than failing if the
-    profiler sees no device activity."""
+    take the most time. For an MoE model the profiled steps run every
+    ``moe_ffn`` call under a ``record_function`` span, and the kernels
+    launched inside those spans give the MoE FFN's device time, its share
+    of the step's and its launches per step. Reports "not measured" rather
+    than failing if the profiler sees no device activity."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core.hardware import get_chip
+    from repro_torch.models import moe
     from repro_torch.serving.backends import init_torch_params, make_engine
     params = init_torch_params(cfg, 0, device=dev)
     layout = {} if paged is None else {"paged": paged}
@@ -691,7 +807,10 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
         slot = engine_id = None
 
     def report(kind, prof, n, wall_s):
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        # the device side's kernels, without the GPU-side copies of the
+        # ``moe_ffn`` spans (an annotation, not a kernel)
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and e.name != "moe_ffn"]
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
         wall = wall_s * 1e3 / n
         if not kern:
@@ -714,6 +833,36 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
             + json.dumps([[a.key[:40], round(a.self_cpu_time_total / 1e3 / n,
                                              4), a.count // n]
                           for a in host]))
+        if cfg.moe is None:
+            return
+        spans = [e for e in prof.events() if e.name == "moe_ffn"
+                 and e.device_type == DeviceType.CPU]
+        ks = [k for e in spans for k in region_kernels(e)]
+        if not ks:
+            log(f"# profile {kind}: MoE FFN device time not measured (no "
+                "kernel attributed to the moe_ffn spans)")
+            return
+        moe_ms = sum(ks) / 1e3 / n
+        log(f"# profile {kind}: MoE FFN {len(spans) / n:.0f} calls, "
+            f"{len(ks) / n:.0f} kernels and {moe_ms:.3f} ms of device time "
+            f"per step, {moe_ms / busy:.3f} of device busy")
+
+    orig_ffn = moe.moe_ffn
+
+    def spanned_ffn(*args, **kw):
+        with record_function("moe_ffn"):
+            return orig_ffn(*args, **kw)
+
+    def profiled(fn):
+        """``fn()`` under the profiler, each MoE FFN call in a span."""
+        moe.moe_ffn = spanned_ffn
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+        finally:
+            moe.moe_ffn = orig_ffn
+        return prof
 
     with torch.inference_mode():
         toks = {}
@@ -728,21 +877,24 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
         for _ in range(steps):
             toks = eng.decode_step(toks)
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def decode_steps():
+            nonlocal toks
             for _ in range(steps):
                 toks = eng.decode_step(toks)
+
         report(f"{name} decode (B={slots}, context ~{S + 3 + steps})",
-               prof, steps, wall)
+               profiled(decode_steps), steps, wall)
         t0 = time.perf_counter()
         for p in prompts[slots:slots + 2]:
             eng.prefill(p)
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def prefills():
             for p in prompts[slots + 2:]:
                 eng.prefill(p)
-        report(f"{name} prefill (S={S})", prof, 2, wall)
+
+        report(f"{name} prefill (S={S})", profiled(prefills), 2, wall)
     del eng, params
 
 
@@ -1005,12 +1157,9 @@ def dense14b_model_phase(torch, dev, gen, get_config) -> None:
         t0 = time.perf_counter()
         params = model_phase(torch, cfg, dev, gen)
         torch.cuda.synchronize()
-        n_params = sum(t.numel() for k, t in params.items() if k != "blocks")
-        n_params += sum(t.numel() for b in params["blocks"]
-                        for t in b.values())
         log(f"# phase model {arch} ({cfg.num_layers} layers, "
             f"{cfg.num_heads}/{cfg.num_kv_heads} heads, G = {cfg.q_group}, "
-            f"{n_params / 1e9:.2f} B parameters): "
+            f"{n_params(params) / 1e9:.2f} B parameters): "
             f"{time.perf_counter() - t0:.1f} s, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del params
@@ -1044,6 +1193,70 @@ def dense14b_serves(serve, drive, sla, get_config) -> None:
         log(f"# {arch} serve (G = {cfg.q_group}): flash {n['flash']} = "
             f"{Lr} x {rec['prefills']} prefills, paged {n['paged']} = {Lr} x "
             f"({rec['decode_steps']} decode steps + {engines} warm-ups)")
+
+
+def granite_model_phase(torch, dev, gen, get_config) -> None:
+    """Phase 18: ``model_phase`` on granite-moe-1b-a400m at full width and
+    depth (24 layers, 16/8 heads of 64, 32 experts top-8), the float32
+    reference upcast one block at a time, with each step's MoE routing
+    reported (flips against the reference, drops per prefill)."""
+    cfg = get_config(GRANITE)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RoutingTap() as tap:
+        params = model_phase(torch, cfg, dev, gen, tap=tap)
+    torch.cuda.synchronize()
+    log(f"# phase model {GRANITE} ({cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.dh}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+        f"{n_params(params) / 1e9:.3f} B parameters): "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def granite_serve(serve, drive, sla, get_config) -> dict:
+    """Phase 19: granite-moe-1b-a400m served with phase 5's traffic; every
+    prefill through flash and every decode step (and each of the 3
+    engines' warm-up steps) through paged decode, once per layer exactly,
+    at dh = 64; no other kernel; each handoff one 512-token prompt's
+    blocks, 24 x 64 blocks x 8 rows x 8 heads x 64 x 2 (K, V) x 2 bytes =
+    24 MiB."""
+    cfg = get_config(GRANITE)
+    Lr, engines, requests = cfg.num_layers, 3, 16
+    rec, n = drive("serve-granite", lambda: serve.main(
+        ["--arch", GRANITE] + SERVE_ARGS))
+    sla(rec)
+    if rec["completed"] != requests:
+        fail(f"granite serve completed {rec['completed']} of {requests}")
+    if n["flash"] != Lr * rec["prefills"] or rec["prefills"] < requests:
+        fail(f"granite serve: {n['flash']} flash launches for "
+             f"{rec['prefills']} prefills of {Lr} layers")
+    if n["paged"] != Lr * (rec["decode_steps"] + engines) \
+            or rec["decode_steps"] < 1:
+        fail(f"granite serve: {n['paged']} paged launches for "
+             f"{rec['decode_steps']} decode steps + {engines} warm-ups of "
+             f"{Lr} layers")
+    if n["dense"] or n["wkv"]:
+        fail(f"granite serve launched dense decode or WKV: {n}")
+    handoff = 512 * cfg.kv_bytes_per_token()
+    moved = rec["transferred_MB"] * 2**20
+    # a request the elastic matcher leaves on its prefill engine (turned
+    # decode) is inserted there and moves nothing
+    if handoff != 24 * 2**20 or abs(moved - rec["transfers"] * handoff) > 0.5 \
+            or not (rec["transfers"] == requests
+                    or (rec.get("rate_matcher_moves")
+                        and rec["transfers"] < requests)):
+        fail(f"granite serve moved {moved} bytes in {rec['transfers']} "
+             f"transfers; one handoff is {handoff} bytes")
+    log(f"# {GRANITE} serve: flash {n['flash']} = {Lr} x {rec['prefills']} "
+        f"prefills, paged {n['paged']} = {Lr} x ({rec['decode_steps']} "
+        f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
+        f"{handoff} bytes")
+    return rec
 
 
 def sweep_phase(scratch) -> None:
@@ -1171,9 +1384,9 @@ def main() -> None:
         fail(f"non-causal flash attention disagrees: {err}")
     fl_err = max(fl_err, err)
 
-    def time_flash(S, H=16, Hkv=2):
-        flops, nbytes = flash_work(1, S, S, H, Hkv, 0)
-        cases = [flash_case(torch, gen, 1, S, S, H, Hkv, dev)
+    def time_flash(S, H=16, Hkv=2, dh=128):
+        flops, nbytes = flash_work(1, S, S, H, Hkv, 0, dh)
+        cases = [flash_case(torch, gen, 1, S, S, H, Hkv, dev, dh)
                  for _ in range(copies(nbytes))]
         lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
 
@@ -1189,15 +1402,15 @@ def main() -> None:
             "library_device_ms": timer.device(sdpa, lib_cases),
         }
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        log(f"# flash time S={S} H={H} Hkv={Hkv} ({len(cases)} input sets): "
-            + json.dumps(res))
+        log(f"# flash time S={S} H={H} Hkv={Hkv} dh={dh} ({len(cases)} input "
+            "sets): " + json.dumps(res))
         return res
 
     rows["flash"] = time_flash(512)
     time_flash(4096)
 
     # 3b) paged decode: main path shapes (engine block_size 8), garbage
-    lengths = [577, 100, 1, 64, 300, 512, 9, 250]
+    lengths = lengths_mixed = [577, 100, 1, 64, 300, 512, 9, 250]
     q, pk, pv, tbl, lens = paged_case(torch, gen, lengths, 8, 16, 2, dev)
     out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
     torch.cuda.synchronize()
@@ -1219,11 +1432,11 @@ def main() -> None:
     if g_err > 1e-6:
         fail(f"poisoned trash/tail blocks leaked into the output: {g_err}")
 
-    def time_paged(lengths, nb=None, H=16, Hkv=2):
-        first = paged_case(torch, gen, lengths, 8, H, Hkv, dev, nb)
+    def time_paged(lengths, nb=None, H=16, Hkv=2, dh=128):
+        first = paged_case(torch, gen, lengths, 8, H, Hkv, dev, nb, dh)
         nbytes = 2 * first[1].numel() * first[1].element_size()  # K, V
         cases = [first] + [paged_case(torch, gen, lengths, 8, H, Hkv, dev,
-                                      nb)
+                                      nb, dh)
                            for _ in range(copies(nbytes) - 1)]
         tbl = first[3]
         parts = timer.device_by_kernel(dec_ops.decode_attention_paged, cases)
@@ -1235,9 +1448,10 @@ def main() -> None:
             "library_ms": None,     # PyTorch has no paged attention call
         }
         res["bound_ms"], res["bound_by"] = bound(*paged_work(
-            lengths, len(lengths), tbl.shape[1], H, Hkv))
+            lengths, len(lengths), tbl.shape[1], H, Hkv, dh))
         log(f"# paged time B={len(lengths)} max_len={max(lengths)} "
-            f"nb={tbl.shape[1]} H={H} Hkv={Hkv} ({len(cases)} input sets): "
+            f"nb={tbl.shape[1]} H={H} Hkv={Hkv} dh={dh} ({len(cases)} input "
+            "sets): "
             + json.dumps(res) + "; device ms by kernel: "
             + json.dumps({name[:50]: t for name, t in parts.items()}))
         return res
@@ -1352,11 +1566,12 @@ def main() -> None:
     dense_err = max(dense_err, dense_split_edges(torch, dev, gen, dec_ops,
                                                  decode_attention_ref))
 
-    def time_dense(lengths, Smax):
+    def time_dense(lengths, Smax, H=16, Hkv=2, dh=128):
         B = len(lengths)
-        first = dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+        first = dense_case(torch, gen, lengths, Smax, H, Hkv, dev, dh)
         nbytes = 2 * first[1].numel() * first[1].element_size()
-        cases = [first] + [dense_case(torch, gen, lengths, Smax, 16, 2, dev)
+        cases = [first] + [dense_case(torch, gen, lengths, Smax, H, Hkv, dev,
+                                      dh)
                            for _ in range(copies(nbytes) - 1)]
         cols = torch.arange(Smax, device=dev)
 
@@ -1372,11 +1587,11 @@ def main() -> None:
                "plain_ms": timer(decode_attention_ref, cases, runs=3),
                "library_ms": timer(sdpa, cases),
                "library_device_ms": timer.device(sdpa, cases)}
-        res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, 16,
-                                                             2))
-        log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} split="
-            f"{dec_ops.split_tokens(B, 2, Smax)} ({len(cases)} input sets): "
-            + json.dumps(res))
+        res["bound_ms"], res["bound_by"] = bound(*dense_work(lengths, B, H,
+                                                             Hkv, dh))
+        log(f"# dense time B={B} Smax={Smax} max_len={max(lengths)} H={H} "
+            f"Hkv={Hkv} dh={dh} split={dec_ops.split_tokens(B, Hkv, Smax)} "
+            f"({len(cases)} input sets): " + json.dumps(res))
         return res
 
     # the dense serve's decode step: 8 slots midway through 64 new tokens
@@ -1387,7 +1602,77 @@ def main() -> None:
     log(f"# phase kernels (flash chunks, dense): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    # 3e) WKV (kernel 4)
+    # 3e) head dim 64 at granite-moe-1b-a400m's heads (16/8, G = 2): flash
+    #     at the serve's prefill, ragged, chunk and B = 2 shapes; paged and
+    #     dense decode at mixed lengths, split edges and the serve's step,
+    #     each with poisoned rows; then each timed at the serve's shape
+    t0 = time.perf_counter()
+    H, Hkv = HEADS_GRANITE
+    errs = {"flash": 0.0, "paged": 0.0, "dense": 0.0}
+    for (B, Sq, Skv, off) in [(1, 512, 512, 0), (1, 509, 509, 0),
+                              (2, 70, 300, 230), (2, 96, 96, 0),
+                              (1, 1, 449, 448), (1, 16, 464, 448),
+                              (1, 64, 112, 48), (1, 64, 576, 512)]:
+        q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, 64)
+        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"# flash dh=64 H={H} Hkv={Hkv} B={B} Sq={Sq} Skv={Skv} "
+            f"off={off}: max_abs_err {err:.3e}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"flash at dh 64 disagrees: {err}")
+        errs["flash"] = max(errs["flash"], err)
+    for lens_g, nb in [(lengths_mixed, None), ([1, 32, 33, 63, 97, 544, 584,
+                                                9], 73)]:
+        q, pk, pv, tbl, lens = paged_case(torch, gen, lens_g, 8, H, Hkv, dev,
+                                          nb, 64)
+        out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - dec_ops.decode_attention_paged_plain(
+            q, pk, pv, tbl, lens).float()).abs().max().item()
+        pk2, pv2 = pk.clone(), pv.clone()
+        pk2[0], pv2[0] = 1e4, -1e4
+        for b, n in enumerate(lens_g):
+            if n % 8:
+                last = int(tbl[b, (n - 1) // 8])
+                pk2[last, n % 8:], pv2[last, n % 8:] = 77.0, -77.0
+        same = torch.equal(out, dec_ops.decode_attention_paged(
+            q, pk2, pv2, tbl, lens))
+        log(f"# paged dh=64 H={H} Hkv={Hkv} lengths={lens_g} nb="
+            f"{tbl.shape[1]}: max_abs_err {err:.3e}, poisoned blocks "
+            f"{'bit-unchanged' if same else 'LEAKED'}")
+        if not math.isfinite(err) or err > KERNEL_ATOL or not same:
+            fail(f"paged decode at dh 64 disagrees ({err}) or leaks ({same})")
+        errs["paged"] = max(errs["paged"], err)
+    for B, Smax in [(8, 584), (4, 100)]:
+        T = dec_ops.split_tokens(B, Hkv, Smax)
+        lens_g = [0, 1, T, T + 1, Smax, Smax + 5, 2 * T - 1, 77][:B]
+        q, kc, vc, lens = dense_case(torch, gen, lens_g, Smax, H, Hkv, dev, 64)
+        out = dec_ops.decode_attention(q, kc, vc, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - decode_attention_ref(q, kc, vc, lens).float()
+               ).abs().max().item()
+        kc2, vc2 = kc.clone(), vc.clone()
+        for b, n in enumerate(lens_g):
+            kc2[b, n:], vc2[b, n:] = 1e4, -1e4
+        same = torch.equal(out, dec_ops.decode_attention(q, kc2, vc2, lens))
+        log(f"# dense dh=64 H={H} Hkv={Hkv} B={B} Smax={Smax} split={T} "
+            f"lengths={lens_g}: max_abs_err {err:.3e}, poisoned rows "
+            f"{'bit-unchanged' if same else 'LEAKED'}")
+        if not math.isfinite(err) or err > KERNEL_ATOL or not same:
+            fail(f"dense decode at dh 64 disagrees ({err}) or leaks ({same})")
+        errs["dense"] = max(errs["dense"], err)
+    for key, row in (("flash", time_flash(512, H, Hkv, 64)),
+                     ("paged", time_paged([544] * 8, nb=73, H=H, Hkv=Hkv,
+                                          dh=64)),
+                     ("dense", time_dense([544] * 8, 584, H, Hkv, 64))):
+        rows[key]["granite_dh64"] = {"max_abs_err": errs[key], **row}
+    fl_err, dec_err = max(fl_err, errs["flash"]), max(dec_err, errs["paged"])
+    dense_err = max(dense_err, errs["dense"])
+    log(f"# phase kernels (dh 64): {time.perf_counter() - t0:.1f} s")
+
+    # 3f) WKV (kernel 4)
     t0 = time.perf_counter()
     wkv_err, rows["wkv"] = wkv_phase(torch, dev, gen, timer)
     log(f"# phase kernels (wkv): {time.perf_counter() - t0:.1f} s")
@@ -1543,6 +1828,23 @@ def main() -> None:
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# phase sweep: {time.perf_counter() - t0:.1f} s")
+
+    # 18) granite-moe-1b-a400m: full width and depth, kernel vs plain vs
+    #     fp32, with the MoE routing of each path
+    t0 = time.perf_counter()
+    granite_model_phase(torch, dev, gen, get_config)
+    log(f"# phase granite model: {time.perf_counter() - t0:.1f} s")
+
+    # 19) granite served disaggregated: phase 5's traffic, dh 64 kernels
+    t0 = time.perf_counter()
+    granite_serve(serve, drive, sla, get_config)
+    log(f"# phase granite serve: {time.perf_counter() - t0:.1f} s")
+
+    # 20) granite profile: a decode step of 8 slots and a 512-token
+    #     prefill, with the MoE FFN's share of the device time
+    t0 = time.perf_counter()
+    profile_phase(torch, get_config(GRANITE), dev)
+    log(f"# phase granite profile: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

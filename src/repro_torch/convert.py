@@ -24,18 +24,29 @@ def _tensor(a, device, dtype: Optional[torch.dtype]):
     return t.to(dtype) if dtype is not None else t
 
 
+def _layer(tree: Dict[str, Any], i: int, device, dtype):
+    """Layer i of a stacked block dict; nested dicts (an MoE layer's
+    ``moe``: router, wg, wu, wd, ...) keep their nesting."""
+    return {k: (_layer(v, i, device, dtype) if isinstance(v, dict)
+                else _tensor(np.asarray(v)[i], device, dtype))
+            for k, v in tree.items()}
+
+
+def _num_layers(tree: Dict[str, Any]) -> int:
+    leaf = next(iter(tree.values()))
+    return _num_layers(leaf) if isinstance(leaf, dict) else len(leaf)
+
+
 def from_reference(params: Dict[str, Any], *, device,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Reference pytree (numpy leaves, stacked layer axis) -> port params.
-    ``dtype`` casts every leaf (default: keep each leaf's own type)."""
+    ``dtype`` casts every leaf (default: keep each leaf's own type, e.g.
+    an MoE router's fp32 in a bf16 config)."""
     device = torch.device(device)
     blocks = params["blocks"]
-    n_layers = len(next(iter(blocks.values())))
     out: Dict[str, Any] = {
         k: _tensor(v, device, dtype) for k, v in params.items()
         if k != "blocks"}
-    out["blocks"] = [
-        {k: _tensor(np.asarray(v)[i], device, dtype)
-         for k, v in blocks.items()}
-        for i in range(n_layers)]
+    out["blocks"] = [_layer(blocks, i, device, dtype)
+                     for i in range(_num_layers(blocks))]
     return out

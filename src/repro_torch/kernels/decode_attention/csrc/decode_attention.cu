@@ -28,6 +28,11 @@
 //   - rows at or past lengths[b] are never read (dead splits return at
 //     once, the boundary split zeroes its rows up to the next 16 in shared
 //     memory), so a stale or poisoned row cannot leak into the output.
+// Head dim 64 or 128 (the body's template parameter): no engine of this
+// repo decodes granite-moe-1b-a400m on the dense layout by default, but
+// the body is shared with the paged kernel, so dh = 64 comes with it; at
+// granite's heads (16/8, G = 2) a live row is 2 KB of K and V per layer,
+// 2 FLOPs per byte, bound by HBM bytes as at 128.
 #include "split_attend.cuh"
 
 using namespace split_kv;
@@ -42,6 +47,7 @@ struct DenseRows {
   }
 };
 
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS)
 dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B,Hkv,G,DH]
                     const __nv_bfloat16* __restrict__ k,   // [B,Smax,Hkv,DH]
@@ -63,43 +69,58 @@ dense_decode_kernel(const __nv_bfloat16* __restrict__ q,   // [B,Hkv,G,DH]
   float* mp = m_part + part * G;
   float* lp = l_part + part * G;
   if (n_live == 0) {   // dead split (uniform across the CTA)
-    dead_split(op, mp, lp, G);
+    dead_split<DH>(op, mp, lp, G);
     return;
   }
   const size_t stride = size_t(Hkv) * DH;
-  split_attend(DenseRows{(size_t(b) * Smax + start) * stride + size_t(h) * DH,
-                         stride},
-               q + (size_t(b) * Hkv + h) * G * DH, k, v, op, mp, lp, smem, T,
-               n_live, G, scale);
+  split_attend<DH>(
+      DenseRows{(size_t(b) * Smax + start) * stride + size_t(h) * DH, stride},
+      q + (size_t(b) * Hkv + h) * G * DH, k, v, op, mp, lp, smem, T, n_live,
+      G, scale);
 }
 
-}  // namespace
-
-// q [B,Hkv,G,128] bf16; k/v caches [B,Smax,Hkv,128] bf16; lengths [B]
-// int32 (clamped to Smax); split_tokens <= 128 rows per split; scratch
-// partials o [B,Hkv,S,G,128], m and l [B,Hkv,S,G] fp32 with S = n_splits
-// = ceil(Smax / split_tokens); out [B,Hkv,G,128] bf16. Launches the split
-// kernel and the merge kernel on `stream`; returns cudaGetLastError()
-// after both.
-extern "C" int dense_decode_fwd(const void* q, const void* k_cache,
-                                const void* v_cache, const void* lengths,
-                                void* o_part, void* m_part, void* l_part,
-                                void* out, int B, int Smax, int Hkv, int G,
-                                int split_tokens, int n_splits, float scale,
-                                void* stream) {
+template <int DH>
+int launch(const void* q, const void* k_cache, const void* v_cache,
+           const void* lengths, void* o_part, void* m_part, void* l_part,
+           void* out, int B, int Smax, int Hkv, int G, int split_tokens,
+           int n_splits, float scale, cudaStream_t stream) {
   static bool configured = false;
-  if (split_tokens < 1 ||
-      n_splits != (Smax + split_tokens - 1) / split_tokens)
-    return int(cudaErrorInvalidValue);
-  return launch_split_and_merge(
-      dense_decode_kernel, &configured, split_tokens, B, Hkv, G, n_splits,
-      static_cast<const float*>(o_part), static_cast<const float*>(m_part),
-      static_cast<const float*>(l_part), static_cast<__nv_bfloat16*>(out),
-      static_cast<cudaStream_t>(stream),
+  return launch_split_and_merge<DH>(
+      dense_decode_kernel<DH>, &configured, split_tokens, B, Hkv, G,
+      n_splits, static_cast<const float*>(o_part),
+      static_cast<const float*>(m_part), static_cast<const float*>(l_part),
+      static_cast<__nv_bfloat16*>(out), stream,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_cache),
       static_cast<const __nv_bfloat16*>(v_cache),
       static_cast<const int*>(lengths), static_cast<float*>(o_part),
       static_cast<float*>(m_part), static_cast<float*>(l_part), Smax, Hkv, G,
       split_tokens, n_splits, scale);
+}
+
+}  // namespace
+
+// q [B,Hkv,G,dh] bf16; k/v caches [B,Smax,Hkv,dh] bf16; lengths [B]
+// int32 (clamped to Smax); split_tokens <= 128 rows per split; scratch
+// partials o [B,Hkv,S,G,dh], m and l [B,Hkv,S,G] fp32 with S = n_splits
+// = ceil(Smax / split_tokens); out [B,Hkv,G,dh] bf16; dh = 64 or 128.
+// Launches the split kernel and the merge kernel on `stream`; returns
+// cudaGetLastError() after both.
+extern "C" int dense_decode_fwd(const void* q, const void* k_cache,
+                                const void* v_cache, const void* lengths,
+                                void* o_part, void* m_part, void* l_part,
+                                void* out, int B, int Smax, int Hkv, int G,
+                                int dh, int split_tokens, int n_splits,
+                                float scale, void* stream) {
+  if (split_tokens < 1 || (dh != 64 && dh != 128) ||
+      n_splits != (Smax + split_tokens - 1) / split_tokens)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dh == 128
+             ? launch<128>(q, k_cache, v_cache, lengths, o_part, m_part,
+                           l_part, out, B, Smax, Hkv, G, split_tokens,
+                           n_splits, scale, st)
+             : launch<64>(q, k_cache, v_cache, lengths, o_part, m_part,
+                          l_part, out, B, Smax, Hkv, G, split_tokens,
+                          n_splits, scale, st);
 }

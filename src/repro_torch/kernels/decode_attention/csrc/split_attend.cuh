@@ -38,6 +38,20 @@
 //     shared memory and hands P to the second product in bf16;
 //   - finite NEG_INF (-1e30), as in the TPU kernels, so the merge of a
 //     dead split never forms -inf - -inf.
+// The head dim DH is a template parameter, 128 or 64 (granite-moe-1b-a400m:
+// its 8 KV heads of 64 hold Hkv*dh = 512 elements per token and layer
+// against qwen2.5-3b's 256, so the same HBM-bound design reads twice the
+// bytes per token). Re-derived at DH = 64 rather than halved:
+//   - a row is 128 bytes, 8 chunks of 16: the staging loop puts 8 threads
+//     on a row, so a pass of 128 threads covers 16 rows (8 at DH = 128);
+//   - the swizzle swz(t, c) = t*ROW + ((c ^ (t & 7)) << 4) still keeps
+//     ldmatrix free of bank conflicts: a 128-byte row spans the 32 banks
+//     once, and the 8 rows of one 8x8 matrix put chunk c at 8 different
+//     chunk slots (c ^ 0 .. c ^ 7, all within the row's 8);
+//   - S^T takes DH/16 = 4 k-steps, K's ldmatrix column 2*kk + (lane >> 4)
+//     stays within the 8 chunks;
+//   - O^T = V^T P^T has DH/16 = 4 dh tiles of 16: one per warp (two at
+//     DH = 128), each warp walking every token k-step of the split.
 // Not done yet: the merge is a second launch and a second pass over the
 // partials (16% of paged decode at B=32 x 4096); the last CTA of each
 // (b, h) could merge instead.
@@ -47,7 +61,6 @@
 
 namespace split_kv {
 
-constexpr int ROW = DH * 2;         // bytes of one K/V row
 constexpr int NT_MAX = GMAX / 8;    // n-tiles of query heads
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -95,30 +108,42 @@ __device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// bytes of one K/V row
+template <int DH>
+__host__ __device__ constexpr int row_bytes() {
+  static_assert(DH == 64 || DH == 128, "head dim 64 or 128");
+  return DH * 2;
+}
+
 // byte offset of 16-byte chunk c of row t in a staged K or V tile
+template <int DH>
 __device__ __forceinline__ int swz(int t, int c) {
-  return t * ROW + ((c ^ (t & 7)) << 4);
+  return t * row_bytes<DH>() + ((c ^ (t & 7)) << 4);
 }
 
 // shared memory for splits of up to t16 rows (a multiple of 16): the K
 // tile, whose space the fp32 scores [GMAX][t16 + 4] and bf16 p
 // [GMAX][t16 + 8] take over once S is formed; the V tile; TMAX ints for a
 // kernel's own use (the paged kernel's table entries)
+template <int DH>
 __host__ __device__ inline size_t region_a(int t16) {
-  const size_t k = size_t(t16) * ROW;
+  const size_t k = size_t(t16) * row_bytes<DH>();
   const size_t sp = size_t(GMAX) * (t16 + 4) * 4 + size_t(GMAX) * (t16 + 8) * 2;
   return k > sp ? k : sp;
 }
 
+template <int DH>
 __host__ __device__ inline size_t extra_offset(int t16) {
-  return region_a(t16) + size_t(t16) * ROW;
+  return region_a<DH>(t16) + size_t(t16) * row_bytes<DH>();
 }
 
+template <int DH>
 inline size_t smem_bytes(int t16) {
-  return extra_offset(t16) + size_t(TMAX) * 4;
+  return extra_offset<DH>(t16) + size_t(TMAX) * 4;
 }
 
 // a split with no live row: (0, NEG_INF, 0), which the merge weighs 0
+template <int DH>
 __device__ __forceinline__ void dead_split(float* op, float* mp, float* lp,
                                            int G) {
   for (int i = threadIdx.x; i < G * DH; i += NTHREADS) op[i] = 0.f;
@@ -132,7 +157,7 @@ __device__ __forceinline__ void dead_split(float* op, float* mp, float* lp,
 // this (b, h)'s G query rows [G, DH]; rows(t) is the element offset of row
 // t's DH values of head h in k and in v (the same in both); op, mp, lp are
 // this split's partials. Every thread of the CTA calls it.
-template <class Rows>
+template <int DH, class Rows>
 __device__ __forceinline__ void split_attend(
     const Rows& rows, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
@@ -144,7 +169,7 @@ __device__ __forceinline__ void split_attend(
   const int srow = t16 + 4;
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(ss + GMAX * srow);
   const int prow = t16 + 8;
-  unsigned char* sV = smem + region_a(t16);
+  unsigned char* sV = smem + region_a<DH>(t16);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -154,17 +179,18 @@ __device__ __forceinline__ void split_attend(
 
   // stage the live rows: K as one commit group, V as a second; rows from
   // n_live up to n16 are zeroed (never read from global memory)
+  constexpr int CHUNKS = DH / 8;      // 16-byte chunks per row
   const int n16 = (n_live + 15) & ~15;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  const int c = tid & 15;             // this thread's 16-byte chunk
+  const int c = tid % CHUNKS;         // this thread's 16-byte chunk
   for (int pass = 0; pass < 2; ++pass) {
     const __nv_bfloat16* src = pass ? v : k;
     unsigned char* dst = pass ? sV : sK;
-    for (int t = tid >> 4; t < n16; t += NTHREADS / 16) {
+    for (int t = tid / CHUNKS; t < n16; t += NTHREADS / CHUNKS) {
       if (t < n_live)
-        cp_async16(smem_u32(dst + swz(t, c)), src + rows(t) + c * 8);
+        cp_async16(smem_u32(dst + swz<DH>(t, c)), src + rows(t) + c * 8);
       else
-        *reinterpret_cast<uint4*>(dst + swz(t, c)) = zero;
+        *reinterpret_cast<uint4*>(dst + swz<DH>(t, c)) = zero;
     }
     cp_async_commit();
   }
@@ -202,7 +228,7 @@ __device__ __forceinline__ void split_attend(
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
         uint32_t a[4];
-        ldmatrix_x4(a, k_base + swz(t, 2 * kk + (lane >> 4)));
+        ldmatrix_x4(a, k_base + swz<DH>(t, 2 * kk + (lane >> 4)));
 #pragma unroll
         for (int nt = 0; nt < NT_MAX; ++nt)
           if (nt < NT) mma_16816(sacc[mi][nt], a, qf[nt][kk]);
@@ -250,8 +276,11 @@ __device__ __forceinline__ void split_attend(
   cp_async_wait<0>();                 // this thread's V rows are in
   __syncthreads();
 
-  // O^T = V^T P^T: warp w owns dh tiles 2w, 2w + 1; tokens are the k side
-  float acc[2][NT_MAX][4] = {};
+  // O^T = V^T P^T: warp w owns dh tiles MPW*w .. MPW*w + MPW - 1 (two at
+  // DH = 128, one at 64: the 4 warps cover DH/16 tiles); tokens are the
+  // k side
+  constexpr int MPW = DH / 64;
+  float acc[MPW][NT_MAX][4] = {};
   const uint32_t v_base = smem_u32(sV);
   for (int ks = 0; ks * 16 < n16; ++ks) {
     uint32_t pb[NT_MAX][2];
@@ -263,23 +292,23 @@ __device__ __forceinline__ void split_attend(
     }
     const int t = ks * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < MPW; ++mi) {
       uint32_t a[4];
       ldmatrix_x4_trans(
-          a, v_base + swz(t, (warp * 2 + mi) * 2 + ((lane >> 3) & 1)));
+          a, v_base + swz<DH>(t, (warp * MPW + mi) * 2 + ((lane >> 3) & 1)));
 #pragma unroll
       for (int nt = 0; nt < NT_MAX; ++nt)
         if (nt < NT) mma_16816(acc[mi][nt], a, pb[nt]);
     }
   }
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int mi = 0; mi < MPW; ++mi) {
 #pragma unroll
     for (int nt = 0; nt < NT_MAX; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int head = nt * 8 + c2 + (e & 1);
-        const int d = (warp * 2 + mi) * 16 + g8 + (e >> 1) * 8;
+        const int d = (warp * MPW + mi) * 16 + g8 + (e >> 1) * 8;
         if (nt < NT && head < G) op[head * DH + d] = acc[mi][nt][e];
       }
     }
@@ -289,7 +318,7 @@ __device__ __forceinline__ void split_attend(
 // Launch a split kernel and the merge kernel on `stream` with the dynamic
 // shared memory a split of T rows needs (the kernel's limit raised once to
 // TMAX rows' worth); returns cudaGetLastError() after both.
-template <class Kernel, class... Args>
+template <int DH, class Kernel, class... Args>
 int launch_split_and_merge(Kernel kernel, bool* configured, int T, int B,
                            int Hkv, int G, int n_splits, const float* o_part,
                            const float* m_part, const float* l_part,
@@ -298,18 +327,18 @@ int launch_split_and_merge(Kernel kernel, bool* configured, int T, int B,
   if (!*configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem_bytes(TMAX)));
+        int(smem_bytes<DH>(TMAX)));
     if (err != cudaSuccess) return int(err);
     *configured = true;
   }
   if (G < 1 || G > GMAX || T < 1 || T > TMAX)
     return int(cudaErrorInvalidValue);
   if (B <= 0 || n_splits <= 0) return 0;
-  kernel<<<dim3(n_splits, Hkv, B), NTHREADS, smem_bytes((T + 15) & ~15),
-           stream>>>(args...);
+  kernel<<<dim3(n_splits, Hkv, B), NTHREADS,
+           smem_bytes<DH>((T + 15) & ~15), stream>>>(args...);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  split_merge_kernel<<<dim3(G, Hkv, B), NTHREADS, 0, stream>>>(
+  split_merge_kernel<DH><<<dim3(G, Hkv, B), DH, 0, stream>>>(
       o_part, m_part, l_part, out, n_splits);
   return int(cudaGetLastError());
 }

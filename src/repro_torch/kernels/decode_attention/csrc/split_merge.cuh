@@ -7,6 +7,10 @@
 // output [B, Hkv, G, DH]; it is one launch instead of the dozen small
 // PyTorch ops of the plain merge (``ops._merge_splits``), which the host
 // could not issue as fast as the card runs them.
+//
+// The head dim DH is a template parameter of everything here, with two
+// instantiations: 128 (qwen2.5-3b, the 14B models) and 64
+// (granite-moe-1b-a400m); the wrappers check it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,14 +19,13 @@
 
 namespace split_kv {
 
-constexpr int DH = 128;       // head dim (the wrappers check it)
 constexpr int GMAX = 16;      // most query heads per KV head
 constexpr int TMAX = 128;     // most tokens per split (K/V rows staged)
-constexpr int NTHREADS = 128; // == DH: one thread per output element
+constexpr int NTHREADS = 128; // a split kernel's CTA: 4 warps
 constexpr float NEG_INF = -1e30f;
 
-// max (or sum) over the CTA's NTHREADS threads; every thread gets it
-template <bool MAX>
+// max (or sum) over the CTA's NT threads; every thread gets it
+template <int NT, bool MAX>
 __device__ __forceinline__ float block_reduce(float x, float* red) {
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
@@ -34,26 +37,34 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
   __syncthreads();
   x = red[0];
 #pragma unroll
-  for (int w = 1; w < NTHREADS / 32; ++w)
+  for (int w = 1; w < NT / 32; ++w)
     x = MAX ? fmaxf(x, red[w]) : x + red[w];
   return x;
 }
 
 // Cross-split online-softmax merge: one CTA per (query head g, KV head,
-// sequence) — grid (G, Hkv, B) — one thread per output element d. The
-// splits' maxima and weights exp(m_s - m_all) are formed in parallel, one
-// split per thread, 128 splits at a time, so each thread's own loop over
-// the splits only sums o (independent loads). A dead split (m = NEG_INF,
-// l = 0, o = 0) weighs exp(NEG_INF - m_all) = 0; a sequence with no live
-// split gives 0 / 1e-30 = 0, as the plain merge does.
-__global__ void __launch_bounds__(NTHREADS)
+// sequence) — grid (G, Hkv, B) — one thread per output element d, so DH
+// threads. The splits' maxima and weights exp(m_s - m_all) are formed in
+// parallel, one split per thread, DH splits at a time, so each thread's
+// own loop over the splits only sums o (independent loads). A dead split
+// (m = NEG_INF, l = 0, o = 0) weighs exp(NEG_INF - m_all) = 0; a sequence
+// with no live split gives 0 / 1e-30 = 0, as the plain merge does.
+//
+// At DH = 64 the CTA is 64 threads, one per element as at 128, rather than
+// two query heads in one 128-thread CTA: G can be odd (5 at qwen3-14b's
+// 40/8 heads), so a pairing would need a tail case, and the merge reads
+// only the partials (B*Hkv*S*G*DH*4 bytes, 0.33 MB at granite's serve
+// step), which 2*8*8 = 128 CTAs of 64 threads still spread over the card.
+template <int DH>
+__global__ void __launch_bounds__(DH)
 split_merge_kernel(const float* __restrict__ o_part,   // [B,Hkv,S,G,DH]
                    const float* __restrict__ m_part,   // [B,Hkv,S,G]
                    const float* __restrict__ l_part,
                    __nv_bfloat16* __restrict__ out,    // [B,Hkv,G,DH]
                    int n_splits) {
-  __shared__ float w[NTHREADS];
-  __shared__ float red[NTHREADS / 32];
+  constexpr int NT = DH;                 // threads: one per element
+  __shared__ float w[NT];
+  __shared__ float red[NT / 32];
   const int g = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -62,12 +73,12 @@ split_merge_kernel(const float* __restrict__ o_part,   // [B,Hkv,S,G,DH]
   const size_t bh = size_t(b) * gridDim.y + h;
   const size_t part = bh * n_splits;
   float m_all = NEG_INF;
-  for (int s = t; s < n_splits; s += NTHREADS)
+  for (int s = t; s < n_splits; s += NT)
     m_all = fmaxf(m_all, m_part[(part + s) * G + g]);
-  m_all = block_reduce<true>(m_all, red);
+  m_all = block_reduce<NT, true>(m_all, red);
   float l_sum = 0.f, acc = 0.f;
-  for (int s0 = 0; s0 < n_splits; s0 += NTHREADS) {
-    const int n = min(NTHREADS, n_splits - s0);
+  for (int s0 = 0; s0 < n_splits; s0 += NT) {
+    const int n = min(NT, n_splits - s0);
     __syncthreads();                     // the previous chunk's w is read
     if (t < n) {
       const size_t i = (part + s0 + t) * G + g;
@@ -80,7 +91,7 @@ split_merge_kernel(const float* __restrict__ o_part,   // [B,Hkv,S,G,DH]
 #pragma unroll 16
     for (int s = 0; s < n; ++s) acc += op[size_t(s) * G * DH] * w[s];
   }
-  const float l_all = block_reduce<false>(l_sum, red);
+  const float l_all = block_reduce<NT, false>(l_sum, red);
   out[(bh * G + g) * DH + t] = __float2bfloat16(acc / fmaxf(l_all, 1e-30f));
 }
 

@@ -30,9 +30,11 @@ SPLIT_TOKENS = 128      # most rows a split kernel stages (csrc TMAX)
 MIN_SPLIT_TOKENS = 32   # fewest tokens in a split
 MAX_SPLIT_TOKENS = 64   # most tokens in a split
 TARGET_CTAS = 264       # two CTAs on each of the H100's 132 SMs
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_float,
+HEAD_DIMS = (64, 128)   # the head dims the split body is instantiated for
+MAX_GROUP = 16          # most query heads per KV head (csrc GMAX)
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                            ctypes.c_void_p]
-_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+_DENSE_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -100,9 +102,9 @@ def _check_operands(what, qg, **tensors):
             raise ValueError(f"{what}: {name} must be contiguous {dt}, got "
                              f"{t.dtype}")
     G, dh = qg.shape[2:]
-    if dh != 128 or G > 16:
-        raise ValueError(f"{what}: needs dh == 128 and G <= 16, got dh={dh}, "
-                         f"G={G}")
+    if dh not in HEAD_DIMS or G > MAX_GROUP:
+        raise ValueError(f"{what}: needs dh in {HEAD_DIMS} and G <= "
+                         f"{MAX_GROUP}, got dh={dh}, G={G}")
 
 
 def _partials(qg, n_splits):
@@ -140,8 +142,8 @@ def _kernel(qg, pool_k, pool_v, tables, lengths):
         err = _lib().paged_decode_fwd(
             qg.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), out.data_ptr(), B, Hkv, G, Bs, nb,
-            pps, S, 1.0 / math.sqrt(dh), stream)
+            m.data_ptr(), l.data_ptr(), out.data_ptr(), B, Hkv, G, dh, Bs,
+            nb, pps, S, 1.0 / math.sqrt(dh), stream)
     _build.check(err, "paged_decode_fwd")
     decode_attention_paged.launches += 1
     return out
@@ -207,7 +209,7 @@ def _dense_kernel(qg, k_cache, v_cache, lengths):
         err = _dense_lib().dense_decode_fwd(
             qg.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            out.data_ptr(), B, Smax, Hkv, G, T, S, 1.0 / math.sqrt(dh),
+            out.data_ptr(), B, Smax, Hkv, G, dh, T, S, 1.0 / math.sqrt(dh),
             stream)
     _build.check(err, "dense_decode_fwd")
     decode_attention.launches += 1

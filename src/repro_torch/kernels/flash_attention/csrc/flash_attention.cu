@@ -19,7 +19,7 @@
 //   - GQA row packing: a CTA serves one (batch, KV head) pair and 64
 //     packed query rows; row r is position p0 + r/G of query head
 //     hk*G + r%G. The G heads of one position are contiguous in q, so the
-//     Q tile is P = floor(64/G) contiguous [G,128] blocks (one TMA box),
+//     Q tile is P = floor(64/G) contiguous [G,dh] blocks (one TMA box),
 //     each K/V tile is read once for all G heads, and a 16-row chunk at
 //     G = 8 fills 128 rows instead of 16 of 64;
 //   - any G from 1 to 16 (H % Hkv == 0): where G does not divide 64 the
@@ -27,16 +27,16 @@
 //     the rows past it are dead. They are zeroed in shared memory once,
 //     before the Q box lands (the box never writes them), so their scores
 //     are finite and touch no live row; their outputs are never stored;
-//     and bar_q expects the box's own 2*G*P*128 bytes. Padding each
+//     and bar_q expects the box's own (dh/64)*G*P*128 bytes. Padding each
 //     position's heads to the next power of two instead would waste 3 of
 //     every 8 rows at G = 5 (40 positions of 64 rows against 12 of 60)
 //     and launch half as many CTAs again;
 //   - one consumer warpgroup (4 warps, 16 rows each) runs both products
-//     on wgmma with the accumulators in registers: S = Q K^T as 8
+//     on wgmma with the accumulators in registers: S = Q K^T as dh/16
 //     m64n64k16 (Q and K K-major from shared memory), then O += P V as 4
-//     m64n128k16 with P, converted to bf16 in registers, as the register A
-//     operand and V [keys,128] the MN-major (transposed) B operand. O stays
-//     in fp32 registers from the first K/V tile to the epilogue;
+//     m64n{dh}k16 with P, converted to bf16 in registers, as the register
+//     A operand and V [keys,dh] the MN-major (transposed) B operand. O
+//     stays in fp32 registers from the first K/V tile to the epilogue;
 //   - the online softmax runs on the score fragment: row max and row sum
 //     over the quad that shares a row, exp2 with the scale folded into one
 //     FMA, the finite NEG_INF and the m > 0.5*NEG_INF guard of the TPU
@@ -51,8 +51,8 @@
 //     stages, with full/empty mbarriers for K and V apart (K is released
 //     as soon as S is formed). The tensor maps are 4-D over [B,S,Hkv,128]
 //     (and [B,Sq,H,128] for Q), so rows past Skv (or Sq) are zero-filled
-//     by the hardware instead of read from the next sequence; each 128-wide
-//     row tile is two 64-column boxes with SWIZZLE_128B, the layout wgmma's
+//     by the hardware instead of read from the next sequence; each row
+//     tile is dh/64 64-column boxes with SWIZZLE_128B, the layout wgmma's
 //     descriptors read. The maps are encoded on the host per call, reached
 //     through cudaGetDriverEntryPoint (no -lcuda), and passed as
 //     __grid_constant__ parameters;
@@ -61,8 +61,22 @@
 //   - the epilogue stages O in bf16 through the Q tile's shared memory
 //     (an XOR swizzle keeps it free of bank conflicts) and writes 16-byte
 //     rows, skipping positions past Sq.
+//   - the head dim is a template parameter with two instantiations, 128
+//     (qwen2.5-3b, the 14B models) and 64 (granite-moe-1b-a400m, 16/8
+//     heads, G = 2). At dh = 64 a row tile is one box: Q K^T takes 4
+//     k-steps, P V runs on m64n64k16 (RS), O is 32 fp32 registers a thread
+//     instead of 64, a K or V stage is 8 KB, and the epilogue's rows are
+//     128 bytes (8 chunks, the XOR swizzle within them). The dh = 128
+//     instantiation keeps its 144 registers and its time (PERF.md).
 // What holds it back now (PERF.md): the softmax is only partly hidden —
 // without it the loop runs at ~66% of the tensor-core peak, with it ~45%.
+// At dh = 64 the products per score halve while the softmax's work per
+// score stays, so the softmax weighs twice as much against them; at
+// granite's prefill (S = 512, 16/8 heads: 128 CTAs of 32 positions, up to
+// 8 K/V tiles each) the bound is bytes (~1 us) and the time is the CTAs'
+// serial walk and the launch. The halved shared memory (40 KB) and
+// registers would allow a deeper ring or a second consumer warpgroup:
+// not taken, one instantiation of the same design first.
 #include <cuda.h>          // CUtensorMap and its enums only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,10 +84,8 @@
 
 namespace {
 
-constexpr int DH = 128;             // head dim (the wrapper checks it)
 constexpr int BN = 64;              // keys per K/V tile
 constexpr uint32_t KV_HALF = 64 * 64 * 2;   // one 64x64 bf16 box
-constexpr uint32_t KV_BYTES = 2 * KV_HALF;  // a 64x128 K or V tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -81,11 +93,21 @@ constexpr int BM = 64;              // packed query rows per CTA
 constexpr int STAGES = 2;           // K/V ring depth
 constexpr int NCONSUMER = 128;      // one warpgroup
 constexpr int NTHREADS = NCONSUMER + 32;    // + the producer warp
-constexpr uint32_t Q_HALF = BM * 128;       // a 64-column half of Q
-constexpr uint32_t OFF_K = 2 * Q_HALF;      // Q at 0
-constexpr uint32_t OFF_V = OFF_K + STAGES * KV_BYTES;
-constexpr uint32_t OFF_BAR = OFF_V + STAGES * KV_BYTES;
-constexpr size_t SMEM_BYTES = OFF_BAR + (1 + 4 * STAGES) * 8 + 1024;
+constexpr uint32_t Q_HALF = BM * 128;       // a 64-column box of Q
+
+// The shared-memory layout of the head-dim-DH instantiation (DH = 64 or
+// 128, the wrapper checks it): each row tile is NH 64-column SW128 boxes,
+// Q at 0, then the K ring, the V ring and the mbarriers
+template <int DH>
+struct Layout {
+  static_assert(DH == 64 || DH == 128, "head dim 64 or 128");
+  static constexpr int NH = DH / 64;                 // 64-column boxes
+  static constexpr uint32_t KV_BYTES = NH * KV_HALF; // a 64 x DH K or V tile
+  static constexpr uint32_t OFF_K = NH * Q_HALF;
+  static constexpr uint32_t OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr uint32_t OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr size_t SMEM_BYTES = OFF_BAR + (1 + 4 * STAGES) * 8 + 1024;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -208,6 +230,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D[64x64] (+)= A[64x16] * B[16x64], A from registers (bf16 pairs in the
+// accumulator's layout), B from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
 // D[64x128] (+)= A[64x16] * B[16x128], A from registers (bf16 pairs in the
 // accumulator's layout), B from shared memory, MN-major (transposed)
 __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
@@ -244,7 +289,8 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float* d, const uint32_t* a,
 }
 
 
-// S = Q K^T over dh = 128: 8 k-steps, 4 in each 64-column half of Q and K
+// S = Q K^T over DH: DH/16 k-steps, 4 in each 64-column box of Q and K
+template <int DH>
 __device__ __forceinline__ void issue_qk(float* s, uint32_t sq, uint32_t sk) {
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
@@ -255,16 +301,23 @@ __device__ __forceinline__ void issue_qk(float* s, uint32_t sq, uint32_t sk) {
   }
 }
 
-// O += P V over 64 keys: 4 k-steps of 16 keys (two 8-row atoms each); the
-// two 64-column halves of V are the MN chunks, KV_HALF apart
+// O += P V over 64 keys: 4 k-steps of 16 keys (two 8-row atoms each); at
+// DH = 128 the two 64-column boxes of V are the MN chunks, KV_HALF apart
+// (m64n128k16), at DH = 64 the one box is the whole N side (m64n64k16)
+template <int DH>
 __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p,
                                          uint32_t sv) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_m64n128k16_rs(o, p + 4 * kk,
-                        sw128_desc(sv + kk * 2048, KV_HALF, 1024), 1);
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t db = sw128_desc(sv + kk * 2048, KV_HALF, 1024);
+    if constexpr (DH == 128)
+      wgmma_m64n128k16_rs(o, p + 4 * kk, db, 1);
+    else
+      wgmma_m64n64k16_rs(o, p + 4 * kk, db, 1);
+  }
 }
 
+template <int DH>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
@@ -275,8 +328,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1 KB
   unsigned char* smem = smem_raw + (base - raw);
-  const uint32_t sQ = base, sK = base + OFF_K, sV = base + OFF_V;
-  const uint32_t bar_q = base + OFF_BAR;
+  using Lay = Layout<DH>;
+  constexpr int NH = Lay::NH;
+  constexpr uint32_t KV_BYTES = Lay::KV_BYTES;
+  const uint32_t sQ = base, sK = base + Lay::OFF_K, sV = base + Lay::OFF_V;
+  const uint32_t bar_q = base + Lay::OFF_BAR;
   auto k_full = [&](int s) { return bar_q + 8u * (1 + s); };
   auto k_empty = [&](int s) { return bar_q + 8u * (1 + STAGES + s); };
   auto v_full = [&](int s) { return bar_q + 8u * (1 + 2 * STAGES + s); };
@@ -306,29 +362,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // rows the Q box does not fill (64 % G != 0): zeros, made visible
   // to the async proxy (wgmma reads them) before any thread goes on
   for (int i = live_rows * 8 + tid; i < BM * 8; i += NTHREADS) {
-    *reinterpret_cast<uint4*>(smem + i * 16) = make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(smem + Q_HALF + i * 16) = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int h = 0; h < NH; ++h)
+      *reinterpret_cast<uint4*>(smem + h * Q_HALF + i * 16) =
+          make_uint4(0, 0, 0, 0);
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
   if (tid >= NCONSUMER) {                 // the producer warp
     if (tid == NCONSUMER) {
-      mbar_expect_tx(bar_q, 2u * live_rows * 128u);
-      tma_load(sQ, &map_q, bar_q, 0, hk * G, p0, b);
-      tma_load(sQ + Q_HALF, &map_q, bar_q, 64, hk * G, p0, b);
+      mbar_expect_tx(bar_q, uint32_t(NH) * live_rows * 128u);
+      for (int h = 0; h < NH; ++h)
+        tma_load(sQ + h * Q_HALF, &map_q, bar_q, 64 * h, hk * G, p0, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % STAGES;
         const uint32_t free_parity = ((j / STAGES) & 1) ^ 1;
         const uint32_t kst = sK + s * KV_BYTES, vst = sV + s * KV_BYTES;
         mbar_wait(k_empty(s), free_parity);
         mbar_expect_tx(k_full(s), KV_BYTES);
-        tma_load(kst, &map_k, k_full(s), 0, hk, j * BN, b);
-        tma_load(kst + KV_HALF, &map_k, k_full(s), 64, hk, j * BN, b);
+        for (int h = 0; h < NH; ++h)
+          tma_load(kst + h * KV_HALF, &map_k, k_full(s), 64 * h, hk, j * BN,
+                   b);
         mbar_wait(v_empty(s), free_parity);
         mbar_expect_tx(v_full(s), KV_BYTES);
-        tma_load(vst, &map_v, v_full(s), 0, hk, j * BN, b);
-        tma_load(vst + KV_HALF, &map_v, v_full(s), 64, hk, j * BN, b);
+        for (int h = 0; h < NH; ++h)
+          tma_load(vst + h * KV_HALF, &map_v, v_full(s), 64 * h, hk, j * BN,
+                   b);
       }
     }
     return;
@@ -345,11 +405,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   // a masked score, raw: scaled it is NEG_INF (up to rounding)
   const float neg_raw = NEG_INF / scale_log2;
 
-  float acc_o[64];
+  float acc_o[DH / 2];                       // O: DH/8 8-column groups
   float acc_s[32];
   uint32_t pf[16];                           // P in bf16 pairs, 4 k-steps
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc_o[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc_o[i] = 0.f;
   float mA = NEG_INF, mB = NEG_INF;          // running row max (log2 units)
   float lA = 0.f, lB = 0.f;                  // this thread's part of l
 
@@ -419,7 +479,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   auto rescale_o = [&](float alphaA, float alphaB) {
     if (__any_sync(0xffffffffu, alphaA != 1.f || alphaB != 1.f)) {
 #pragma unroll
-      for (int i = 0; i < 16; ++i) {
+      for (int i = 0; i < DH / 8; ++i) {
         acc_o[4 * i] *= alphaA;
         acc_o[4 * i + 1] *= alphaA;
         acc_o[4 * i + 2] *= alphaB;
@@ -434,7 +494,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(k_full(0), 0);
     fence_regs<32>(acc_s);
     wgmma_fence();
-    issue_qk(acc_s, sQ, sK);
+    issue_qk<DH>(acc_s, sQ, sK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs<32>(acc_s);
@@ -448,19 +508,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(k_full(s), (j / STAGES) & 1);
     mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);
     fence_regs<32>(acc_s);
-    fence_regs<64>(acc_o);
+    fence_regs<DH / 2>(acc_o);
     fence_regs<16>(pf);
     wgmma_fence();
-    issue_qk(acc_s, sQ, sK + s * KV_BYTES);
+    issue_qk<DH>(acc_s, sQ, sK + s * KV_BYTES);
     wgmma_commit();
-    issue_pv(acc_o, pf, sV + sp * KV_BYTES);
+    issue_pv<DH>(acc_o, pf, sV + sp * KV_BYTES);
     wgmma_commit();
     wgmma_wait<1>();                         // S of tile j is in
     fence_regs<32>(acc_s);
     if (lane == 0) mbar_arrive(k_empty(s));
     softmax(j, aA, aB);                      // overlaps P V of tile j-1
     wgmma_wait<0>();
-    fence_regs<64>(acc_o);
+    fence_regs<DH / 2>(acc_o);
     fence_regs<16>(pf);
     if (lane == 0) mbar_arrive(v_empty(sp));
     rescale_o(aA, aB);
@@ -469,13 +529,13 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   if (n_kv > 0) {
     const int sp = (n_kv - 1) % STAGES;
     mbar_wait(v_full(sp), ((n_kv - 1) / STAGES) & 1);
-    fence_regs<64>(acc_o);
+    fence_regs<DH / 2>(acc_o);
     fence_regs<16>(pf);
     wgmma_fence();
-    issue_pv(acc_o, pf, sV + sp * KV_BYTES);
+    issue_pv<DH>(acc_o, pf, sV + sp * KV_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs<64>(acc_o);
+    fence_regs<DH / 2>(acc_o);
   }
 
   // epilogue: normalise, stage bf16 rows in the Q tile's memory (16-byte
@@ -488,28 +548,33 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const float invA = 1.f / fmaxf(lA, 1e-30f);
   const float invB = 1.f / fmaxf(lB, 1e-30f);
   consumer_bar();                 // every wgmma is done with Q
+  // (a row is DH/8 chunks, so at DH = 64 the XOR stays within its 8)
+  constexpr int ROW_BYTES = DH * 2;
+  constexpr int CHUNKS = DH / 8;             // 16-byte chunks per row
+  constexpr int RSTEP = NCONSUMER / CHUNKS;  // rows stored per pass
   unsigned char* stage = smem;
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
+  for (int i = 0; i < CHUNKS; ++i) {
     const int off = ((i ^ (rA & 7)) << 4) + cq * 2;
-    *reinterpret_cast<uint32_t*>(stage + rA * 256 + off) =
+    *reinterpret_cast<uint32_t*>(stage + rA * ROW_BYTES + off) =
         pack_bf16(acc_o[4 * i] * invA, acc_o[4 * i + 1] * invA);
-    *reinterpret_cast<uint32_t*>(stage + (rA + 8) * 256 + off) =
+    *reinterpret_cast<uint32_t*>(stage + (rA + 8) * ROW_BYTES + off) =
         pack_bf16(acc_o[4 * i + 2] * invB, acc_o[4 * i + 3] * invB);
   }
   consumer_bar();
-  // thread t stores 16-byte chunk t % 16 of rows t / 16, +8, +16, ...:
-  // row r's position p0 + r / G and head r % G advance by 8 / G and 8 % G
-  // (with a carry) from one of its rows to the next; dead rows are skipped
-  const int c = tid & 15;
-  int r = tid >> 4;
+  // thread t stores 16-byte chunk t % CHUNKS of rows t / CHUNKS, +RSTEP,
+  // ...: row r's position p0 + r / G and head r % G advance by RSTEP / G
+  // and RSTEP % G (with a carry) from one of its rows to the next; dead
+  // rows are skipped
+  const int c = tid % CHUNKS;
+  int r = tid / CHUNKS;
   int pos = p0 + r / G, head = r % G;
-  const int pos_step = (NCONSUMER / 16) / G;
-  const int head_step = (NCONSUMER / 16) % G;
-  for (; r < live_rows; r += NCONSUMER / 16) {
+  const int pos_step = RSTEP / G;
+  const int head_step = RSTEP % G;
+  for (; r < live_rows; r += RSTEP) {
     if (pos < Sq) {
       const uint4 val = *reinterpret_cast<const uint4*>(
-          stage + r * 256 + ((c ^ (r & 7)) << 4));
+          stage + r * ROW_BYTES + ((c ^ (r & 7)) << 4));
       *reinterpret_cast<uint4*>(
           o + ((size_t(b) * Sq + pos) * H + hk * G + head) * DH + c * 8) =
           val;
@@ -544,17 +609,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// 4-D map over a contiguous [B, S, Hh, 128] bf16 tensor, box {64 columns,
+// 4-D map over a contiguous [B, S, Hh, dh] bf16 tensor, box {64 columns,
 // box_h heads, box_s positions, 1}, 128-byte swizzle; out-of-range rows
 // read as zeros
 bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int Hh,
-              int box_h, int box_s) {
+              int dh, int box_h, int box_s) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  cuuint64_t dims[4] = {cuuint64_t(DH), cuuint64_t(Hh), cuuint64_t(S),
+  cuuint64_t dims[4] = {cuuint64_t(dh), cuuint64_t(Hh), cuuint64_t(S),
                         cuuint64_t(B)};
-  cuuint64_t strides[3] = {cuuint64_t(DH) * 2, cuuint64_t(Hh) * DH * 2,
-                           cuuint64_t(S) * Hh * DH * 2};
+  cuuint64_t strides[3] = {cuuint64_t(dh) * 2, cuuint64_t(Hh) * dh * 2,
+                           cuuint64_t(S) * Hh * dh * 2};
   cuuint32_t box[4] = {64, cuuint32_t(box_h), cuuint32_t(box_s), 1};
   cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
@@ -564,39 +629,53 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int Hh,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the head-dim-DH instantiation's launch (its shared-memory limit raised
+// once); G and the shapes are checked by the caller
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int Hkv, int q_offset, int causal,
+           float scale, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(Layout<DH>::SMEM_BYTES));
+    if (err != cudaSuccess) return int(err);
+    configured = true;
+  }
+  const int G = H / Hkv;
+  const int P = BM / G;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B, Sq, H, DH, G, P) ||
+      !make_map(&mk, k, B, Skv, Hkv, DH, 1, BN) ||
+      !make_map(&mv, v, B, Skv, Hkv, DH, 1, BN))
+    return int(cudaErrorInvalidValue);
+  dim3 grid((Sq + P - 1) / P, Hkv, B);
+  flash_fwd_kernel<DH><<<grid, NTHREADS, Layout<DH>::SMEM_BYTES, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, G, q_offset,
+      causal, scale * LOG2E);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
-// q [B,Sq,H,128], k/v [B,Skv,Hkv,128], o [B,Sq,H,128]: contiguous bf16,
-// 16-byte aligned; G = H/Hkv from 1 to 16. Returns
+// q [B,Sq,H,dh], k/v [B,Skv,Hkv,dh], o [B,Sq,H,dh]: contiguous bf16,
+// 16-byte aligned; dh = 64 or 128; G = H/Hkv from 1 to 16. Returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes
 // it does not take).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Sq,
-                                   int Skv, int H, int Hkv, int q_offset,
-                                   int causal, float scale, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(SMEM_BYTES));
-    if (err != cudaSuccess) return int(err);
-    configured = true;
-  }
+                                   int Skv, int H, int Hkv, int dh,
+                                   int q_offset, int causal, float scale,
+                                   void* stream) {
   if (Hkv <= 0 || H % Hkv || Skv <= 0 || q_offset < 0)
     return int(cudaErrorInvalidValue);
-  const int G = H / Hkv;
-  if (G > 16) return int(cudaErrorInvalidValue);
-  if (Sq <= 0 || B <= 0) return 0;
-  const int P = BM / G;
-  CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, Sq, H, G, P) ||
-      !make_map(&mk, k, B, Skv, Hkv, 1, BN) ||
-      !make_map(&mv, v, B, Skv, Hkv, 1, BN))
+  if (H / Hkv > 16 || (dh != 64 && dh != 128))
     return int(cudaErrorInvalidValue);
-  dim3 grid((Sq + P - 1) / P, Hkv, B);
-  flash_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                     static_cast<cudaStream_t>(stream)>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, G,
-      q_offset, causal, scale * LOG2E);
-  return int(cudaGetLastError());
+  if (Sq <= 0 || B <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dh == 128 ? launch<128>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                                 causal, scale, st)
+                   : launch<64>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
+                                causal, scale, st);
 }

@@ -18,7 +18,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # most query heads per KV head the kernel packs into its 64-row tiles
 MAX_GROUP = 16
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
+# the head dims the kernel is instantiated for
+HEAD_DIMS = (64, 128)
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
 
@@ -47,8 +49,8 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """Causal (or full) GQA attention. q: [B,Sq,H,dh]; k, v:
     [B,Skv,Hkv,dh] un-expanded (the kernel maps q head h to KV head
     h // (H/Hkv), and packs the H/Hkv heads of a group into its rows, so
-    it takes H/Hkv up to MAX_GROUP and dh = 128). Returns [B,Sq,H,dh] in
-    q.dtype."""
+    it takes H/Hkv up to MAX_GROUP and dh in HEAD_DIMS). Returns
+    [B,Sq,H,dh] in q.dtype."""
     _check_inputs(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -60,8 +62,9 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
                              f"contiguous bfloat16, got {t.dtype}")
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if dh != 128:
-        raise ValueError(f"flash_attention kernel: head dim {dh} != 128")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {dh} not in "
+                         f"{HEAD_DIMS}")
     if H // Hkv > MAX_GROUP:
         raise ValueError(f"flash_attention kernel: {H // Hkv} query heads per "
                          f"KV head, more than {MAX_GROUP}")
@@ -72,7 +75,7 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Skv, H, Hkv, int(q_offset), int(bool(causal)),
+            Skv, H, Hkv, dh, int(q_offset), int(bool(causal)),
             1.0 / math.sqrt(dh), stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1

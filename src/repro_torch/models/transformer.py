@@ -31,8 +31,13 @@ KV: its dense "cache" is the recurrent state ``{"s": [L, B, H, N, N] fp32,
 capacity and no paged layout, and its prefill is never chunked. Every WKV
 runs through the WKV kernel under ``impl="kernel"``.
 
-MoE, kv-quant, the sliding window and the hybrid family come with later
-slices (``unported`` names which).
+The MoE family (``cfg.moe`` set, e.g. granite-moe-1b-a400m) is the attention
+family with every FFN the reference's capacity-based MoE
+(``models/moe.py``); attention, both KV layouts and the kernels are the
+same. The serving paths drop the MoE metrics, as the reference's do.
+
+kv-quant, the sliding window and the hybrid family come with later slices
+(``unported`` names which).
 """
 from __future__ import annotations
 
@@ -46,7 +51,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
-from repro_torch.models import rwkv6
+from repro_torch.models import moe, rwkv6
 from repro_torch.models.config import ModelConfig
 
 f32 = torch.float32
@@ -60,7 +65,8 @@ def _check_impl(impl: str) -> None:
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
-    or None for the families it covers: dense attention and RWKV-6."""
+    or None for the families it covers: dense attention, MoE and
+    RWKV-6."""
     if cfg.block not in ("attn", "rwkv"):
         return f"{cfg.block} blocks come with the hybrid slice"
     if cfg.frontend:
@@ -71,8 +77,6 @@ def unported(cfg: ModelConfig) -> Optional[str]:
         return "kv-quant comes with the kv-quant / sliding-window slice"
     if cfg.sliding_window:
         return "the sliding window comes with the kv-quant / sliding-window slice"
-    if cfg.moe is not None:
-        return "MoE comes with the MoE slice"
     return None
 
 
@@ -104,10 +108,32 @@ def _normal(gen, shape, std, device, dtype):
     return (x * std).to(dtype)
 
 
+def _init_moe(gen, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
+    """The reference's MoE FFN init (``_init_ffn_layer``): an fp32 router
+    of std 0.02, experts ``wg``/``wu`` [E,D,F] and ``wd`` [E,F,D] of std
+    1/sqrt(D) (``wd`` also over sqrt(L)), and the shared experts' SwiGLU
+    [D,F*n] / [F*n,D] where the config has any."""
+    m, D, dt = cfg.moe, cfg.d_model, cfg.tdtype
+    E, F = m.num_experts, m.d_ff_expert
+    s = 1.0 / math.sqrt(D)
+    p = {"router": _normal(gen, (D, E), 0.02, device, f32),
+         "wg": _normal(gen, (E, D, F), s, device, dt),
+         "wu": _normal(gen, (E, D, F), s, device, dt),
+         "wd": _normal(gen, (E, F, D), s / math.sqrt(cfg.num_layers), device,
+                       dt)}
+    if m.num_shared_experts:
+        Fs = F * m.num_shared_experts
+        p["shared_wg"] = _normal(gen, (D, Fs), s, device, dt)
+        p["shared_wu"] = _normal(gen, (D, Fs), s, device, dt)
+        p["shared_wd"] = _normal(gen, (Fs, D), s, device, dt)
+    return p
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     """Random parameters with the reference's distributions and scales
     (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
-    ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer), drawn
+    ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer; an MoE
+    layer's FFN under ``p["moe"]``), drawn
     from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
     the same weights convert the JAX ones (``repro_torch.convert``)."""
@@ -139,10 +165,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
             "wv": _normal(gen, (D, Hkv, dh), s, device, dt),
             "wo": _normal(gen, (Hp, dh, D), deep, device, dt),
             "ffn_norm": ones(D),
-            "wi_gate": _normal(gen, (D, F), s, device, dt),
-            "wi_up": _normal(gen, (D, F), s, device, dt),
-            "wo_ffn": _normal(gen, (F, D), deep, device, dt),
         }
+        if cfg.moe is not None:
+            p["moe"] = _init_moe(gen, cfg, device)
+        else:
+            p["wi_gate"] = _normal(gen, (D, F), s, device, dt)
+            p["wi_up"] = _normal(gen, (D, F), s, device, dt)
+            p["wo_ffn"] = _normal(gen, (F, D), deep, device, dt)
         if cfg.qkv_bias:
             p["bq"], p["bk"], p["bv"] = zeros(Hp, dh), zeros(Hkv, dh), \
                 zeros(Hkv, dh)
@@ -360,7 +389,15 @@ def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
 
 
 def _ffn(p, x, cfg: ModelConfig):
+    """The FFN sub-block with its residual: the dense SwiGLU, or the MoE
+    FFN where ``cfg.moe`` is set (its metrics dropped, as the reference's
+    serving paths drop them)."""
     xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if cfg.moe is not None:
+        y, _ = moe.moe_ffn(xn, p["moe"], cfg.moe,
+                           combine_fp32=cfg.moe_combine_fp32,
+                           expert_tp=cfg.moe_expert_tp)
+        return x + y
     return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"])
 
 

@@ -160,7 +160,7 @@ def test_flash_kernel_packs_every_group_size(cuda, G):
 
 def test_flash_kernel_refuses_group_sizes_it_does_not_pack(cuda):
     """The kernel packs up to 16 heads per KV head into its 64-row tiles,
-    and takes dh = 128 only."""
+    and takes dh = 64 and 128 only."""
     k = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
     q17 = torch.zeros((1, 8, 34, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                          # G = 17
@@ -168,17 +168,17 @@ def test_flash_kernel_refuses_group_sizes_it_does_not_pack(cuda):
     q32 = torch.zeros((1, 8, 64, 128), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                          # G = 32
         flash_attention(q32, k, k)
-    q64 = torch.zeros((1, 8, 8, 64), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                          # dh = 64
-        flash_attention(q64, q64[:, :, :2], q64[:, :, :2])
+    q96 = torch.zeros((1, 8, 8, 96), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # dh = 96
+        flash_attention(q96, q96[:, :, :2], q96[:, :, :2])
 
 
-def _paged_case(rng, B, N, Bs, Hkv, lengths, dev, nb=None):
+def _paged_case(rng, B, N, Bs, Hkv, lengths, dev, nb=None, dh=128):
     """Pool + sequential per-sequence tables of ``nb`` columns (default:
     as many as the longest needs); pad columns -> trash block 0 (the
     layout of tests/test_kernels.py)."""
-    pool_k = _bf16(rng, (N, Bs, Hkv, 128), dev)
-    pool_v = _bf16(rng, (N, Bs, Hkv, 128), dev)
+    pool_k = _bf16(rng, (N, Bs, Hkv, dh), dev)
+    pool_v = _bf16(rng, (N, Bs, Hkv, dh), dev)
     nb = nb or max(-(-int(n) // Bs) for n in lengths)
     tables = np.zeros((B, nb), np.int32)
     ids = iter(range(1, N))
@@ -314,9 +314,9 @@ def test_paged_kernel_garbage_block_immunity(cuda):
     assert torch.equal(out1, out2)
 
 
-def _dense_case(rng, B, Smax, H, Hkv, lengths, dev):
-    return (_bf16(rng, (B, H, 128), dev), _bf16(rng, (B, Smax, Hkv, 128), dev),
-            _bf16(rng, (B, Smax, Hkv, 128), dev),
+def _dense_case(rng, B, Smax, H, Hkv, lengths, dev, dh=128):
+    return (_bf16(rng, (B, H, dh), dev), _bf16(rng, (B, Smax, Hkv, dh), dev),
+            _bf16(rng, (B, Smax, Hkv, dh), dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
@@ -426,9 +426,19 @@ def test_dense_kernel_long_context(cuda):
 
 def test_kernels_refuse_what_they_do_not_take(cuda):
     """On CUDA tensors the wrappers launch or raise: no plain fallback."""
-    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros((1, 8, 4, 96), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attention(q, q[:, :, :2], q[:, :, :2])       # dh 64
+        flash_attention(q, q[:, :, :2], q[:, :, :2])       # dh 96
+    k96 = torch.zeros((1, 16, 2, 96), device=cuda, dtype=torch.bfloat16)
+    l96 = torch.ones((1,), device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):                          # dh 96
+        decode_attention(torch.zeros((1, 4, 96), device=cuda,
+                                     dtype=torch.bfloat16), k96, k96, l96)
+    with pytest.raises(ValueError):                          # dh 96
+        decode_attention_paged(
+            torch.zeros((1, 4, 96), device=cuda, dtype=torch.bfloat16),
+            k96, k96, torch.ones((1, 2), device=cuda, dtype=torch.int32),
+            l96)
     q32 = torch.zeros((1, 8, 4, 128), device=cuda)
     with pytest.raises(ValueError):
         flash_attention(q32, q32[:, :, :2], q32[:, :, :2])  # fp32
@@ -534,3 +544,180 @@ def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
         wkv(r, k, v, lw, u, s0.transpose(2, 3))
     with pytest.raises(ValueError):                          # CPU state
         wkv(r, k, v, lw, u, s0.cpu())
+
+
+# ---------------------------------------------------------------------------
+# head dim 64: granite-moe-1b-a400m's 16 query / 8 KV heads of 64 (G = 2),
+# and every group size up to 16 at dh = 64
+
+GRANITE = (16, 8)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,causal,off", [
+    (1, 512, 512, True, 0),             # the serve's prefill
+    (1, 509, 509, True, 0),             # ragged: no multiple of a tile
+    (2, 70, 300, True, 230),            # ragged chunk at an offset, B = 2
+    (1, 1, 449, True, 448),             # chunk shapes Sq = 1, 16, 64
+    (1, 16, 464, True, 448),
+    (1, 64, 112, True, 48),
+    (1, 64, 576, True, 512),
+    (1, 1100, 1177, True, 77),          # long: many K/V tiles per CTA
+    (2, 130, 70, False, 0),             # non-causal, ragged both ways
+    (2, 1500, 1300, False, 0),
+])
+def test_flash_kernel_at_dh64_granite_heads(cuda, B, Sq, Skv, causal, off):
+    """Flash at dh = 64 (one 64-column box per tile, P V on m64n64k16) at
+    granite's heads against its plain version."""
+    H, Hkv = GRANITE
+    rng = np.random.default_rng(67)
+    q = _bf16(rng, (B, Sq, H, 64), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("G", list(range(1, 17)))
+def test_flash_kernel_at_dh64_every_group_size(cuda, G):
+    """Every G from 1 to 16 at dh = 64: B = 2, Sq no multiple of the
+    floor(64/G) positions of a tile, q_offset no multiple of the tile; the
+    dead rows of a tile reach no output (the epilogue's 8-chunk rows walk
+    16 rows per pass)."""
+    rng = np.random.default_rng(71 + G)
+    B, Sq, Skv, Hkv, off = 2, 67, 150, 2, 83
+    q = _bf16(rng, (B, Sq, G * Hkv, 64), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    out = flash_attention(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_flash_kernel_at_dh64_never_reads_the_next_sequence(cuda):
+    """dh = 64, B = 2, Skv no multiple of the 64-key tile: sequence 1's K/V
+    are NaN and sequence 0's output stays finite and right."""
+    rng = np.random.default_rng(73)
+    q = _bf16(rng, (2, 100, 16, 64), cuda)
+    k = _bf16(rng, (2, 100, 8, 64), cuda)
+    v = _bf16(rng, (2, 100, 8, 64), cuda)
+    k[1], v[1] = float("nan"), float("nan")
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q[:1], k[:1], v[:1], causal=True)
+    assert torch.isfinite(out[0]).all()
+    assert (out[:1].float() - ref.float()).abs().max().item() <= ATOL
+
+
+def _poison_paged(pool_k, pool_v, tables, lengths, Bs):
+    """The trash block (+-1e4, NaN in its second half) and every tail past
+    a length (+-77) poisoned, on copies."""
+    pool_k2, pool_v2 = pool_k.clone(), pool_v.clone()
+    pool_k2[0], pool_v2[0] = 1e4, -1e4
+    pool_k2[0, Bs // 2:], pool_v2[0, Bs // 2:] = float("nan"), float("nan")
+    for b, n in enumerate(lengths):
+        if n % Bs:
+            last = int(tables[b, (n - 1) // Bs])
+            pool_k2[last, n % Bs:] = 77.0
+            pool_v2[last, n % Bs:] = -77.0
+    return pool_k2, pool_v2
+
+
+@pytest.mark.parametrize("nb", [73, 128])
+def test_paged_kernel_at_dh64_granite_heads(cuda, nb):
+    """Paged decode at dh = 64 and granite's heads (G = 2: Q padded to the
+    MMA's 8 rows; 4 warps x 16 columns of O^T): lengths at the edges of the
+    shape's split, the serve's 544 and the whole window, against the plain
+    version; then the trash block and every tail past a length poisoned
+    must leave the output bit-unchanged."""
+    H, Hkv = GRANITE
+    rng = np.random.default_rng(79)
+    B, Bs = 8, 8
+    T = _split_tokens(B, Hkv, nb, Bs)
+    lengths = (1, T, T + 1, 2 * T - 1, 3 * T + 1, 544, nb * Bs, 9)
+    q = _bf16(rng, (B, H, 64), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, nb=nb, dh=64)
+    n0 = decode_attention_paged.launches
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    assert decode_attention_paged.launches == n0 + 1
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    pk2, pv2 = _poison_paged(pool_k, pool_v, tables, lengths, Bs)
+    out2 = decode_attention_paged(q, pk2, pv2, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("G", list(range(1, 17)))
+def test_paged_kernel_at_dh64_every_group_size(cuda, G):
+    """Every G from 1 to 16 at dh = 64 (one or two n-tiles of heads, zero
+    rows padding G to 8), mixed lengths over 2 KV heads, against the plain
+    version."""
+    rng = np.random.default_rng(83 + G)
+    B, Hkv, Bs = 8, 2, 8
+    lengths = (577, 100, 1, 64, 300, 512, 9, 250)
+    q = _bf16(rng, (B, G * Hkv, 64), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, dh=64)
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    pk2, pv2 = _poison_paged(pool_k, pool_v, tables, lengths, Bs)
+    out2 = decode_attention_paged(q, pk2, pv2, tables, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("B,Smax", [(8, 584), (2, 584), (12, 584), (4, 100)])
+def test_dense_kernel_at_dh64_granite_heads(cuda, B, Smax):
+    """Dense decode at dh = 64 and granite's heads: lengths 0, 1, at and
+    around the shape's split boundaries, Smax and past it, against the
+    plain version; then every row at or past a length poisoned (+-1e4,
+    NaN in half of them) leaves the output bit-unchanged."""
+    H, Hkv = GRANITE
+    T = split_tokens(B, Hkv, Smax)
+    rng = np.random.default_rng(89)
+    edges = [0, 1, T - 1, T, T + 1, 2 * T, Smax - 1, Smax, Smax + 5,
+             Smax - T, Smax - T + 1, 2 * T + 1]
+    lengths = tuple(edges[:B])
+    q, k, v, lens = _dense_case(rng, B, Smax, H, Hkv, lengths, cuda, dh=64)
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
+        if b % 2:
+            k2[b, n + 3:], v2[b, n + 3:] = float("nan"), float("nan")
+    out2 = decode_attention(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("G", [1, 2, 5, 8, 16])
+def test_dense_kernel_at_dh64_group_sizes(cuda, G):
+    """Dense decode at dh = 64 over G = 1 to 16 heads per KV head, the
+    dense serve's cache (584 rows, no multiple of the split)."""
+    rng = np.random.default_rng(97 + G)
+    lengths = (1, 584, 100, 128, 129, 300, 512, 9)
+    q, k, v, lens = _dense_case(rng, 8, 584, 2 * G, 2, lengths, cuda, dh=64)
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_ref(q, k, v, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL

@@ -173,15 +173,20 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
         Engine(3, cfg, tp, chunk_size=12, device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         eng.prefill_chunked(np.arange(250) % 100, 24)  # pads to 264 > 256
-    # what is still unported names the slice that brings it
-    moe = {"moe": MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)}
+    # what is still unported names the slice that brings it; MoE, whose
+    # slice has landed, is accepted in both layouts
+    hybrid = {"block": "hybrid"}
     for change, slice_name in (({"kv_quant": True}, "kv-quant"),
                                ({"sliding_window": 8}, "sliding-window"),
-                               (moe, "MoE slice")):
+                               (hybrid, "hybrid slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             Engine(4, cfg.replace(**change), tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        Engine(4, cfg.replace(**moe), tp, paged=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="hybrid slice"):
+        Engine(4, cfg.replace(**hybrid), tp, paged=False, device="cpu")
+    moe = cfg.replace(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32))
+    moe_p = init_torch_params(moe, 0, device="cpu")
+    for paged in (True, False):
+        assert Engine(4, moe, moe_p, paged=paged, device="cpu").paged == paged
     eng.fail()
     with pytest.raises(Exception, match="down"):
         eng.prefill(np.arange(4))

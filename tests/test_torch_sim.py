@@ -145,12 +145,30 @@ def test_sim_cluster_matches_reference_on_corpus(trace, arch, size, chip,
     assert st_t == st_j and now_t == now_j
 
 
+@pytest.mark.parametrize("size", ["full", "smoke"])
+def test_sim_cluster_matches_reference_for_granite(size):
+    """granite-moe-1b-a400m (the MoE family; the perf model prices its
+    experts) on every corpus trace and policy stack, h100: the same
+    metrics, streams, transfers and clock as the reference, bit for bit."""
+    for trace in TRACES:
+        for stack in STACKS:
+            case = (trace, "granite-moe-1b-a400m", size, "h100", stack)
+            m_t, s_t, st_t, now_t = _serve_sim(True, *case)
+            m_j, s_j, st_j, now_j = _serve_sim(False, *case)
+            assert m_t["completed"] == len(s_t) > 0, case
+            bad = {k: (m_t[k], m_j[k]) for k in m_t
+                   if not _same(m_t[k], m_j[k])}
+            assert not bad and sorted(m_t) == sorted(m_j), (case, bad)
+            assert s_t == s_j and st_t == st_j and now_t == now_j, case
+
+
 def test_perf_llm_bridge_matches_reference():
     """Both served families map to the reference's analytic model field for
     field, at full width: qwen to GQA, RWKV-6 to attention-free."""
     from repro.core.paper_models import perf_llm_from_config as jbridge
     from repro_torch.core.paper_models import perf_llm_from_config
-    for arch, attention in (("qwen2.5-3b", "gqa"), ("rwkv6-1.6b", "none")):
+    for arch, attention in (("qwen2.5-3b", "gqa"), ("rwkv6-1.6b", "none"),
+                            ("granite-moe-1b-a400m", "gqa")):
         mine = perf_llm_from_config(get_config(arch))
         ref = jbridge(jget_config(arch))
         assert mine.attention == attention

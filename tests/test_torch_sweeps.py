@@ -612,7 +612,7 @@ def test_simulate_cell_reuse_hits_prefix_cache_and_speeds_prefill():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "qwen3-14b",
-                                  "phi3-medium-14b"])
+                                  "phi3-medium-14b", "granite-moe-1b-a400m"])
 def test_simulate_cell_arch_ids_match_reference(arch):
     """Architecture ids resolve through each package's own registry; the
     episodes agree, the cache-less family's reuse through the shorter
@@ -799,6 +799,25 @@ def test_launcher_matches_reference(tmp_path, capsys):
         out = LS.main(args + ["--store", str(tmp_path / "p")] + query)
         jout = JLS.main(args + ["--store", str(tmp_path / "j")] + query)
         assert json.loads(json.dumps(out)) == json.loads(json.dumps(jout))
+
+
+def test_launcher_granite_matches_reference(tmp_path):
+    """``--models granite-moe-1b-a400m``: the MoE architecture id resolves
+    through each package's registry (the perf model prices its 32 experts,
+    top-8), and the port's report and records equal the reference's."""
+    args = ["--models", "granite-moe-1b-a400m", "--hardware", "h100",
+            "h100:a100", "--isl", "512", "2048", "--osl", "64", "--reuse",
+            "0.0", "0.5", "--modes", "disagg", "coloc", "--max-chips", "16",
+            "--ttl-targets", "6", "--simulate", "--sim-requests", "4",
+            "--quiet"]
+    rep = LS.main(args + ["--store", str(tmp_path / "p")])
+    jrep = JLS.main(args + ["--store", str(tmp_path / "j")])
+    assert _report(rep) == _report(jrep)
+    assert rep.cells_total == rep.cells_run > 0 and rep.records > 0
+    mine, ref = _shard_tree(tmp_path / "p"), _shard_tree(tmp_path / "j")
+    assert mine and sorted(mine) == sorted(ref)
+    for rel in sorted(mine):
+        assert mine[rel] == ref[rel], f"shard bytes differ: {rel}"
 
 
 def test_motivation_grid_hash_and_cells():
