@@ -113,21 +113,49 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      experts top-8), bf16, random weights from seed 0, checked as phase 4
      (three ways, the same rule), with each path's MoE routing against
      the float32 reference's (layer x token pairs routed to another top-k
-     set) and the tokens each prefill drops;
+     set) and the tokens each prefill drops, and every attention kernel
+     call held against its plain version on the same inputs; first a
+     witness on the phase's prompt and on prompts from seeds 1-8: decode
+     step 0's error free and with every path's routing pinned to the
+     float32 path's experts, where the kernel path must hold the rule;
  19. granite serve: ``serve.main --arch granite-moe-1b-a400m`` with phase
      5's traffic; fails unless all 16 complete, flash ran exactly 24 times
      per prefill and paged decode exactly 24 times per decode step and
      per engine's warm-up step (both at head dim 64), neither dense decode
      nor WKV ran, and each handoff carried 24 MiB;
  20. granite profile: phase 11 for granite's engine, with the MoE FFN's
-     device time, share and launches per step.
+     device time, share and launches per step;
+ 21. hymba model: full-width, full-depth hymba-1.5b (32 layers, 25/5 heads
+     of 64, a sliding window of 1024 beside a selective SSM of state 16),
+     bf16, random weights from seed 0: a prefill of 1,100 tokens (past the
+     window: banded flash, the ring rolled) and 8 dense decode steps (the
+     ring wrapped), three ways by phase 4's rule; layer 0's ring K/V and
+     SSM state must be bit-identical between the kernel and plain paths,
+     and every flash and dense decode call, in all layers, agree with its
+     plain version on the same inputs; the plain bf16 path's distance
+     from float32 is printed at 2, 4, 8 and 16 layers too, and at 2 and 4
+     on the host's CPU from the same weights and prompt;
+ 22. hymba serve: ``serve.main --arch hymba-1.5b`` with phase 5's traffic;
+     fails unless all 16 complete, flash ran exactly 32 times per prefill
+     and dense decode exactly 32 times per decode step and per engine's
+     warm-up step, neither paged decode nor WKV ran, and each handoff
+     carried the ring and the SSM state, 45,527,040 bytes;
+ 23. hymba profile: phase 11 for hymba's engine, with the SSM branch's
+     device time, share and launches per step (``ssm`` spans around
+     ``ssm_apply`` and ``ssm_step``).
 
 Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
 16/8 heads) against their plain versions at the serve's shapes and their
-edges, and times each beside its bound and SDPA's device time.
+edges, and times each beside its bound and SDPA's device time; phase 3g
+does so for flash at hymba's 25/5 heads (G = 5, dh 64) without and with
+its window of 1024 (S = 512 as the serve calls it, which the wrapper
+launches unbanded, and with the widest window that bands; 1100, 2048, a
+ragged B = 2 case at an offset; a window of at least Sq + q_offset
+bit-identical to none; SDPA given the band as an explicit mask) and for
+dense decode over the 1024-row ring (lengths 1 to 1024, poisoned rows).
 
-Every path (5-8, 10, 12-14, 16, 19) runs with every kernel's launch count
-set to 0 just before it and read just after; each phase prints its
+Every path (5-8, 10, 12-14, 16, 19, 22) runs with every kernel's launch
+count set to 0 just before it and read just after; each phase prints its
 seconds.
 
 The last three lines of standard output are the card's name and power
@@ -137,6 +165,7 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -176,6 +205,11 @@ HEADS_14B = {"qwen3-14b": (40, 8), "phi3-medium-14b": (40, 10)}
 # granite-moe-1b-a400m's (query, KV) heads, of dh 64
 GRANITE = "granite-moe-1b-a400m"
 HEADS_GRANITE = (16, 8)
+# hymba-1.5b's (query, KV) heads of dh 64 (G = 5) and its sliding window:
+# the KV ring of its dense decode cache is as many rows
+HYMBA = "hymba-1.5b"
+HEADS_HYMBA = (25, 5)
+HYMBA_WINDOW = 1024
 # phase 17's design grid, its content address and the perf-model points it
 # evaluates (both deterministic: the JAX package's sweep gives the same)
 SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
@@ -271,7 +305,8 @@ def ptxas_entry(line: str) -> str:
     """The kernel a ptxas "Compiling entry function '_ZN...'" line names:
     the last name of its mangled nested name, with its template arguments:
     the WKV kernel's (``wkv_kernel<64, bf16>``), the attention kernels'
-    head dim (``flash_fwd_kernel<64>``)."""
+    head dim (``flash_fwd_kernel<64>``), the flash kernel's window
+    (``flash_fwd_kernel<64, window>``)."""
     m = line.split("'")[1]
     i, name = (3 if m.startswith("_ZN") else 2), m
     while i < len(m) and m[i].isdigit():
@@ -280,10 +315,14 @@ def ptxas_entry(line: str) -> str:
             j += 1
         n = int(m[i:j])
         name, i = m[j:j + n], j + n
-    targs = re.match(r"ILi(\d+)E(f|13__nv_bfloat16)?E", m[i:])
-    if targs and targs.group(2):
+    targs = re.match(r"ILi(\d+)E(?:Lb([01])E)?(f|13__nv_bfloat16)?E",
+                     m[i:])
+    if targs and targs.group(3):
         name += f"<{targs.group(1)}, " + (
-            "fp32" if targs.group(2) == "f" else "bf16") + ">"
+            "fp32" if targs.group(3) == "f" else "bf16") + ">"
+    elif targs and targs.group(2):
+        name += f"<{targs.group(1)}, " + (
+            "window" if targs.group(2) == "1" else "no window") + ">"
     elif targs:
         name += f"<{targs.group(1)}>"
     return name
@@ -311,8 +350,12 @@ def flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, dh=128):
     return mk(B, Sq, H, dh), mk(B, Skv, Hkv, dh), mk(B, Skv, Hkv, dh)
 
 
-def flash_work(B, Sq, Skv, H, Hkv, q_offset, dh=128):
-    pairs = sum(min(Skv, q_offset + i + 1) for i in range(Sq))  # causal
+def flash_work(B, Sq, Skv, H, Hkv, q_offset, dh=128, window=0):
+    """The least work of causal (banded, with ``window``) attention: the
+    (row, key) pairs it must score, each key row read once."""
+    pairs = sum(min(Skv, q_offset + i + 1)
+                - (max(0, q_offset + i + 1 - window) if window else 0)
+                for i in range(Sq))
     flops = 4.0 * B * H * dh * pairs
     nbytes = 2.0 * dh * (2 * B * Sq * H + 2 * B * Skv * Hkv)
     return flops, nbytes
@@ -519,6 +562,64 @@ def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
     return err_max, row
 
 
+def hymba_kernels(torch, dev, gen, fl_ops, dec_ops, flash_ref,
+                  dense_ref) -> dict:
+    """Phase 3g's checks at hymba-1.5b's heads (25/5 of 64, G = 5): flash
+    at the serve's prefill (S = 512 with the window of 1024, which the
+    wrapper launches unbanded), at 512 with the widest window that bands
+    (511), at S = 1100 and 2048 with the window of 1024 and a ragged B = 2
+    case at an offset, each against its plain version; a window of at
+    least Sq + q_offset bit-identical to none; dense decode over the
+    1024-row ring at lengths min(pos + 1, 1024) from one token to a
+    wrapped ring, against its plain version and with the rows at or past
+    each length poisoned. Returns the largest error of each kernel."""
+    H, Hkv = HEADS_HYMBA
+    W = HYMBA_WINDOW
+    errs = {"flash": 0.0, "dense": 0.0}
+    for (B, Sq, Skv, off, window) in [(1, 512, 512, 0, W),
+                                      (1, 512, 512, 0, 511),
+                                      (1, 1100, 1100, 0, W),
+                                      (1, 2048, 2048, 0, W),
+                                      (2, 1500, 1577, 77, W),
+                                      (2, 97, 260, 163, 37)]:
+        q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, 64)
+        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off,
+                                     window=window)
+        torch.cuda.synchronize()
+        ref = flash_ref(q, k, v, causal=True, q_offset=off, window=window)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"# flash hymba H={H} Hkv={Hkv} B={B} Sq={Sq} Skv={Skv} "
+            f"off={off} window={window}: max_abs_err {err:.3e}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"flash at hymba's heads (window {window}) disagrees: {err}")
+        errs["flash"] = max(errs["flash"], err)
+        if window:
+            wide = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off,
+                                          window=Sq + off)
+            full = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            if not torch.equal(wide, full):
+                fail(f"flash: a window of Sq + q_offset = {Sq + off} differs "
+                     "from no window")
+    log("# flash hymba: a window of Sq + q_offset is bit-identical to none")
+    lengths = [1, 37, 544, W, W, W - 1, 512, 2]
+    q, kc, vc, lens = dense_case(torch, gen, lengths, W, H, Hkv, dev, 64)
+    out = dec_ops.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    err = (out.float() - dense_ref(q, kc, vc, lens).float()).abs().max().item()
+    kc2, vc2 = kc.clone(), vc.clone()
+    for b, n in enumerate(lengths):
+        kc2[b, n:], vc2[b, n:] = 1e4, -1e4
+    same = torch.equal(out, dec_ops.decode_attention(q, kc2, vc2, lens))
+    log(f"# dense hymba ring H={H} Hkv={Hkv} Smax={W} lengths={lengths}: "
+        f"max_abs_err {err:.3e}, poisoned rows "
+        f"{'bit-unchanged' if same else 'LEAKED'}")
+    if not math.isfinite(err) or err > KERNEL_ATOL or not same:
+        fail(f"dense decode over hymba's ring disagrees ({err}) or leaks")
+    errs["dense"] = err
+    return errs
+
+
 def hold(torch, what, L, lk, lp, lr, vocab):
     """The model rule: the kernel path's logits no farther from the float32
     reference than twice the plain bf16 path's, plus 1e-3 of the scale.
@@ -535,6 +636,15 @@ def hold(torch, what, L, lk, lp, lr, vocab):
         f"fp32 {lr.argmax(-1).tolist()}")
     if not ok:
         fail(f"{what}: kernel path error {ek} vs plain bf16 {ep}")
+
+
+def tree_to(tree, device):
+    """A copy of nested dicts and lists of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def upcast(params):
@@ -579,17 +689,30 @@ class RoutingTap:
     """While on, records each MoE call's routing mask [T, E] and dropped
     count: ``moe._route`` and ``moe._local_moe`` wrapped for the model
     check only (no serve runs under it). ``take`` returns the calls since
-    the last ``take``: (masks in call order, drops summed)."""
+    the last ``take``: (masks in call order, drops summed). ``pin(masks)``
+    makes the next calls, in order, route to those masks' expert sets
+    (each token's gates its own probabilities over the pinned set,
+    renormalised, as ``_route`` renormalises its top-k); ``pin(None)``
+    frees the routing again."""
 
     def __init__(self):
+        import torch
         from repro_torch.models import moe
-        self.moe, self.calls = moe, []
+        self.torch, self.moe, self.calls, self.pinned = torch, moe, [], None
+
+    def pin(self, masks):
+        self.pinned = None if masks is None else list(masks)
 
     def __enter__(self):
         route, local = self.orig = (self.moe._route, self.moe._local_moe)
 
         def tap_route(x, router_w, cfg):
             out = route(x, router_w, cfg)
+            if self.pinned is not None:
+                mask = self.pinned.pop(0)
+                probs = self.torch.softmax(x.float() @ router_w.float(), -1)
+                gates = probs * mask
+                out = (gates / gates.sum(-1, keepdim=True), mask) + out[2:]
             self.calls.append(("mask", out[1].clone()))
             return out
 
@@ -627,8 +750,100 @@ def report_routing(name, what, runs) -> None:
         f"{dk:.0f}, plain bf16 {dp:.0f}, fp32 {dr:.0f}")
 
 
+class AttentionTap:
+    """While on, holds every attention kernel call of the model against
+    its plain version on the same inputs: the transformer module's
+    ``flash_attention``, ``decode_attention`` and
+    ``decode_attention_paged`` are wrapped for the model check only (no
+    serve runs under it, and no path's launches are counted then). The
+    error is relative to max(1, the plain output's largest magnitude):
+    phase 3's inputs are of unit scale, a model layer's need not be.
+    Each call is launched twice, and the calls whose two outputs are not
+    bit-identical are counted. ``check(what)`` logs each kernel's calls,
+    largest error and such calls since the last check and fails on an
+    error above ``KERNEL_ATOL``."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.kernels.decode_attention import ops as dec_ops
+        from repro_torch.kernels.decode_attention.ref import \
+            decode_attention_ref
+        from repro_torch.kernels.flash_attention.ref import \
+            flash_attention_ref
+        from repro_torch.models import transformer
+        self.T, self.torch = transformer, torch
+        self.plain = {"flash_attention": flash_attention_ref,
+                      "decode_attention": decode_attention_ref,
+                      "decode_attention_paged":
+                          dec_ops.decode_attention_paged_plain}
+        self.seen = {}
+
+    def __enter__(self):
+        self.orig = {name: getattr(self.T, name) for name in self.plain}
+        torch = self.torch
+
+        def tapped(name, kernel, plain):
+            def call(*args, **kw):
+                out = kernel(*args, **kw)
+                differs = not torch.equal(out, kernel(*args, **kw))
+                ref = plain(*args, **kw).float()
+                err = ((out.float() - ref).abs().max()
+                       / ref.abs().max().clamp(min=1.0)).item()
+                n, worst, nd = self.seen.get(name, (0, 0.0, 0))
+                self.seen[name] = (n + 1, max(worst, err)
+                                   if math.isfinite(err) else math.inf,
+                                   nd + differs)
+                return out
+            return call
+
+        for name, kernel in self.orig.items():
+            setattr(self.T, name, tapped(name, kernel, self.plain[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, kernel in self.orig.items():
+            setattr(self.T, name, kernel)
+
+    def check(self, what):
+        seen, self.seen = self.seen, {}
+        log(f"# {what}: attention kernels against their plain versions on "
+            "the same inputs (calls, largest error / max(1, scale), calls "
+            "whose relaunch differs): " + ", ".join(
+                f"{k} {n} {e:.3e} {nd}" for k, (n, e, nd) in seen.items()))
+        bad = {k: e for k, (n, e, _) in seen.items() if not e <= KERNEL_ATOL}
+        if not seen or bad:
+            fail(f"{what}: attention kernels off their plain versions on "
+                 f"the model's own inputs: {bad or 'no call tapped'}")
+
+
+def paged_slots(torch, T, cfgs, caches, S: int, dev):
+    """Block pools of 8-token blocks (one per configuration and its
+    S-token prefill cache) and the shared tables of 4 decode slots that
+    all hold that cache, with 8 blocks each to grow into. Returns (pools,
+    tables, pos)."""
+    cfg, slots, extra, Bs = cfgs[0], 4, 8, 8
+    Lr, nbk = cfg.num_layers, S // Bs
+    width = 1
+    while width < nbk + extra:
+        width *= 2
+    n_blocks = 1 + Lr * slots * (nbk + extra)
+    pools = [T.init_block_pool(c, n_blocks, Bs, device=dev) for c in cfgs]
+    tables = torch.zeros((Lr, slots, width), dtype=torch.int32, device=dev)
+    for s in range(slots):
+        first = 1 + s * Lr * (nbk + extra)
+        ids = torch.arange(first, first + Lr * (nbk + extra), device=dev,
+                           dtype=torch.int32).reshape(Lr, nbk + extra)
+        tables[:, s, :nbk + extra] = ids
+        for pool, c in zip(pools, caches):
+            T.scatter_blocks(pool, ids[:, :nbk], {
+                kk: c[kk][:, 0].reshape(Lr, nbk, Bs, -1, cfg.dh)
+                for kk in ("k", "v")})
+    return pools, tables, torch.full((slots,), S, dtype=torch.int32,
+                                     device=dev)
+
+
 def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4,
-                tap=None):
+                tap=None, prompt=None, params=None, attn=None):
     """Full-width model check; returns the bf16 weights (phase 12 fits the
     simulator on them). Prefill one prompt, then run paged decode
     steps for 4 slots that hold its cache, three ways on the same weights,
@@ -640,15 +855,19 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4,
     float32 reference: it fails on non-finite logits, or on an error above
     twice the plain path's plus 1e-3 of the logit scale. With ``tap`` (a
     ``RoutingTap`` that is on), each step's MoE routing of the three
-    paths is reported as well."""
+    paths is reported as well, and with ``attn`` (an ``AttentionTap``
+    that is on) each step's kernel calls are held against their plain
+    versions. ``prompt`` is drawn from ``gen`` and ``params`` from seed 0
+    unless given."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.backends import init_torch_params
-    params = init_torch_params(cfg, 0, device=dev)
+    if params is None:
+        params = init_torch_params(cfg, 0, device=dev)
     p32 = upcast(params)
     c32 = cfg.replace(dtype="float32")
-    Bs = 8
-    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
-                           device=dev)
+    if prompt is None:
+        prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                               device=dev)
 
     routes = []
 
@@ -663,6 +882,8 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4,
              cfg.vocab_size)
         if tap is not None:
             report_routing(cfg.name, what, routes[-3:])
+        if attn is not None:
+            attn.check(f"model {cfg.name} {what}")
 
     with torch.inference_mode():
         lk, cache = run(T.prefill_full, params, cfg, {"tokens": prompt},
@@ -672,26 +893,9 @@ def model_phase(torch, cfg, dev, gen, S: int = 512, steps: int = 4,
         lr, cache32 = run(T.prefill_full, p32, c32, {"tokens": prompt},
                           impl="plain")
         check(f"prefill S={S}", lk, lp, lr)
-        Lr, nbk, slots, extra = cfg.num_layers, S // Bs, 4, 8
-        width = 1
-        while width < nbk + extra:
-            width *= 2
-        n_blocks = 1 + Lr * slots * (nbk + extra)
-        pools = [T.init_block_pool(c, n_blocks, Bs, device=dev)
-                 for c in (cfg, cfg, c32)]
-        tables = torch.zeros((Lr, slots, width), dtype=torch.int32,
-                             device=dev)
-        for s in range(slots):
-            first = 1 + s * Lr * (nbk + extra)
-            ids = torch.arange(first, first + Lr * (nbk + extra), device=dev,
-                               dtype=torch.int32).reshape(Lr, nbk + extra)
-            tables[:, s, :nbk + extra] = ids
-            for pool, c in zip(pools, (cache, cache, cache32)):
-                T.scatter_blocks(pool, ids[:, :nbk], {
-                    kk: c[kk][:, 0].reshape(Lr, nbk, Bs, -1, cfg.dh)
-                    for kk in ("k", "v")})
-        pos = torch.full((slots,), S, dtype=torch.int32, device=dev)
-        toks = torch.full((slots,), int(lr.argmax()), device=dev)
+        pools, tables, pos = paged_slots(torch, T, (cfg, cfg, c32),
+                                         (cache, cache, cache32), S, dev)
+        toks = torch.full((pos.shape[0],), int(lr.argmax()), device=dev)
         for step in range(steps):
             dk, _, _ = run(T.decode_step_paged, params, cfg, pools[0],
                            tables, pos, toks, impl="kernel")
@@ -765,6 +969,90 @@ def rwkv_model_phase(torch, cfg, dev, gen, B: int = 4, S: int = 512,
     return params
 
 
+def hymba_model_phase(torch, cfg, dev, gen, S: int = 1100, steps: int = 8):
+    """Phase 21: hymba-1.5b at full width and depth, random weights from
+    seed 0: a prefill of S tokens (past the window, so the banded flash
+    kernel runs and the ring is rolled) and dense decode steps from each
+    version's own cache (the ring wraps), three ways (kernel bf16, plain
+    bf16, plain fp32 upcast one block at a time), held by ``hold``.
+
+    The kernel and plain paths differ only in attention, and no layer's
+    cache entry depends on its own attention output: layer 0's ring K/V
+    and SSM state must be equal bit for bit between them after the
+    prefill and after each decode step, which checks the ring placement
+    and the in-place writes of the kernel path. Every flash and dense
+    decode call of the kernel path, in all layers, is held against its
+    plain version on the same inputs (``AttentionTap``): bf16 sits far
+    from fp32 on random hymba weights, so ``hold`` alone says little. The
+    plain bf16 path's distance from fp32 after the prefill is logged at
+    cut depths too (the first 2, 4, 8 and 16 layers), and at 2 and 4
+    layers on the host's CPU from the same weights and prompt, to set
+    beside the CPU tests' figures for the JAX package. Returns the bf16
+    weights."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import init_torch_params
+    params = init_torch_params(cfg, 0, device=dev)
+    runs = [(params, cfg, "kernel"), (params, cfg, "plain"),
+            (upcast(params), cfg.replace(dtype="float32"), "plain")]
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                           device=dev)
+
+    def same_layer0(what, ck, cp):
+        same = {key: torch.equal(ck[key][0], cp[key][0])
+                for key in ("k", "v", "ssm_h", "conv")}
+        if not all(same.values()):
+            fail(f"{cfg.name} {what}: layer 0's cache differs between the "
+                 f"kernel and the plain path: {same}")
+
+    with torch.inference_mode(), AttentionTap() as attn:
+        out = [T.prefill_full(p, c, {"tokens": prompt}, impl=impl)
+               for p, c, impl in runs]
+        hold(torch, f"{cfg.name} prefill S={S} (window "
+             f"{cfg.sliding_window})", cfg.num_layers,
+             *(lg for lg, _ in out), cfg.vocab_size)
+        attn.check(f"model {cfg.name} prefill S={S}")
+        caches = [cache for _, cache in out]
+        if caches[0]["k"].shape[2] != cfg.sliding_window:
+            fail(f"{cfg.name}: ring of {caches[0]['k'].shape[2]} rows")
+        same_layer0(f"prefill S={S}", caches[0], caches[1])
+        toks = out[2][0][:, :cfg.vocab_size].argmax(-1)
+        for step in range(steps):
+            logits = []
+            for (p, c, impl), cache in zip(runs, caches):
+                lg, _ = T.decode_step(p, c, cache, toks, impl=impl)
+                logits.append(lg)
+            same_layer0(f"decode step {step}", caches[0], caches[1])
+            hold(torch, f"{cfg.name} decode step {step} (pos {S + step}, "
+                 f"ring slot {(S + step) % cfg.sliding_window})",
+                 cfg.num_layers, *logits, cfg.vocab_size)
+            attn.check(f"model {cfg.name} decode step {step}")
+            toks = logits[2][:, :cfg.vocab_size].argmax(-1)
+        del caches, out
+
+        def drift_at(n, device):
+            cut = tree_to({**params, "blocks": params["blocks"][:n]},
+                          device)
+            c, tokens = cfg.replace(num_layers=n), {"tokens":
+                                                    prompt.to(device)}
+            lp, _ = T.prefill_full(cut, c, tokens, impl="plain")
+            lr, _ = T.prefill_full(upcast(cut), c.replace(dtype="float32"),
+                                   tokens, impl="plain")
+            lp, lr = (t[..., :cfg.vocab_size].float() for t in (lp, lr))
+            return ((lp - lr).abs().max() / lr.abs().max()).item()
+
+        drift = {n: drift_at(n, dev) for n in (2, 4, 8, 16)}
+        host = {n: drift_at(n, "cpu") for n in (2, 4)}
+    log(f"# model {cfg.name}: layer 0's ring K/V, ssm_h and conv "
+        "bit-identical between the kernel and plain paths at every step")
+    log(f"# model {cfg.name} prefill S={S}: plain bf16 vs fp32 / scale at "
+        "the first n layers: " + ", ".join(f"{n}: {d:.3e}"
+                                          for n, d in drift.items())
+        + "; the same weights and prompt on the host's CPU: " + ", ".join(
+            f"{n}: {d:.3e}" for n, d in host.items()))
+    del runs
+    return params
+
+
 def region_kernels(event):
     """The durations (us) of the device kernels launched under a profiler
     event, its CPU descendants' included."""
@@ -783,15 +1071,17 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     prefills. Prints each kind's host-clock step time, the device time of
     the kernels inside it, the device's idle share and the kernels that
     take the most time. For an MoE model the profiled steps run every
-    ``moe_ffn`` call under a ``record_function`` span, and the kernels
-    launched inside those spans give the MoE FFN's device time, its share
-    of the step's and its launches per step. Reports "not measured" rather
-    than failing if the profiler sees no device activity."""
+    ``moe_ffn`` call under a ``record_function`` span, for a hybrid model
+    every ``ssm_apply`` / ``ssm_step`` call under an ``ssm`` span, and the
+    kernels launched inside those spans give the MoE FFN's (the SSM
+    branch's) device time, its share of the step's and its launches per
+    step. Reports "not measured" rather than failing if the profiler sees
+    no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core.hardware import get_chip
-    from repro_torch.models import moe
+    from repro_torch.models import moe, ssm
     from repro_torch.serving.backends import init_torch_params, make_engine
     params = init_torch_params(cfg, 0, device=dev)
     layout = {} if paged is None else {"paged": paged}
@@ -806,11 +1096,16 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     class Req:
         slot = engine_id = None
 
+    # the spans: name -> the module functions run under it
+    spans = ({"moe_ffn": (moe, ("moe_ffn",))} if cfg.moe is not None else
+             {"ssm": (ssm, ("ssm_apply", "ssm_step"))}
+             if cfg.block == "hybrid" else {})
+
     def report(kind, prof, n, wall_s):
         # the device side's kernels, without the GPU-side copies of the
-        # ``moe_ffn`` spans (an annotation, not a kernel)
+        # spans (an annotation, not a kernel)
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-                and e.name != "moe_ffn"]
+                and e.name not in spans]
         busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3 / n
         wall = wall_s * 1e3 / n
         if not kern:
@@ -833,35 +1128,40 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
             + json.dumps([[a.key[:40], round(a.self_cpu_time_total / 1e3 / n,
                                              4), a.count // n]
                           for a in host]))
-        if cfg.moe is None:
-            return
-        spans = [e for e in prof.events() if e.name == "moe_ffn"
-                 and e.device_type == DeviceType.CPU]
-        ks = [k for e in spans for k in region_kernels(e)]
-        if not ks:
-            log(f"# profile {kind}: MoE FFN device time not measured (no "
-                "kernel attributed to the moe_ffn spans)")
-            return
-        moe_ms = sum(ks) / 1e3 / n
-        log(f"# profile {kind}: MoE FFN {len(spans) / n:.0f} calls, "
-            f"{len(ks) / n:.0f} kernels and {moe_ms:.3f} ms of device time "
-            f"per step, {moe_ms / busy:.3f} of device busy")
+        for span in spans:
+            calls = [e for e in prof.events() if e.name == span
+                     and e.device_type == DeviceType.CPU]
+            ks = [k for e in calls for k in region_kernels(e)]
+            if not ks:
+                log(f"# profile {kind}: {span} device time not measured (no "
+                    f"kernel attributed to the {span} spans)")
+                continue
+            span_ms = sum(ks) / 1e3 / n
+            log(f"# profile {kind}: {span} {len(calls) / n:.0f} calls, "
+                f"{len(ks) / n:.0f} kernels and {span_ms:.3f} ms of device "
+                f"time per step, {span_ms / busy:.3f} of device busy")
 
-    orig_ffn = moe.moe_ffn
-
-    def spanned_ffn(*args, **kw):
-        with record_function("moe_ffn"):
-            return orig_ffn(*args, **kw)
+    def spanned(name, fn):
+        def run(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return run
 
     def profiled(fn):
-        """``fn()`` under the profiler, each MoE FFN call in a span."""
-        moe.moe_ffn = spanned_ffn
+        """``fn()`` under the profiler, each call of a span's functions in
+        that span."""
+        orig = {(mod, f): getattr(mod, f) for mod, fns in spans.values()
+                for f in fns}
+        for name, (mod, fns) in spans.items():
+            for f in fns:
+                setattr(mod, f, spanned(name, orig[(mod, f)]))
         try:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
         finally:
-            moe.moe_ffn = orig_ffn
+            for (mod, f), fn_orig in orig.items():
+                setattr(mod, f, fn_orig)
         return prof
 
     with torch.inference_mode():
@@ -1195,18 +1495,116 @@ def dense14b_serves(serve, drive, sla, get_config) -> None:
             f"({rec['decode_steps']} decode steps + {engines} warm-ups)")
 
 
+def routing_witness(torch, cfg, params, dev, prompts, tap, attn) -> None:
+    """Phase 18's witness for the model rule at granite's decode step 0.
+    For each (name, prompt), the prefill and paged decode step 0 (4 slots,
+    as ``model_phase``) run free in float32, kernel bf16 and plain bf16,
+    then the two bf16 paths again with their routing pinned to the
+    float32 path's expert sets (``RoutingTap.pin``: the same sets, so the
+    same capacity drops; each path's own gates). Logs per prompt step 0's
+    error of both bf16 paths against float32, free and pinned, and the
+    (layer, token) pairs whose top-k set differs between the kernel and
+    plain paths and from float32's. Pinned, the bf16 paths differ only in
+    rounding and the attention kernels (each call also held against its
+    plain version by ``attn``), so the kernel path must hold the rule on
+    every prompt; free, the rule is logged only. Each bf16 path also runs
+    a second time as it stands, and whether its logits and top-k sets
+    come out the same is logged."""
+    from repro_torch.models import transformer as T
+    p32, c32 = upcast(params), cfg.replace(dtype="float32")
+    V, L = cfg.vocab_size, cfg.num_layers
+
+    def run(p, c, impl, prompt, tok=None, pin=None):
+        tap.pin(pin)
+        lg, cache = T.prefill_full(p, c, {"tokens": prompt}, impl=impl)
+        tok = int(lg[:, :V].argmax()) if tok is None else tok
+        pools, tables, pos = paged_slots(torch, T, (c,), (cache,),
+                                         prompt.shape[1], dev)
+        d, _, _ = T.decode_step_paged(
+            p, c, pools[0], tables, pos,
+            torch.full((pos.shape[0],), tok, device=dev), impl=impl)
+        tap.pin(None)
+        return d[:, :V].float(), tap.take()[0], tok
+
+    def err(a, ref):
+        return ((a - ref).abs().max() / ref.abs().max()).item()
+
+    def flips(ma, mb):
+        return sum(int((a != b).any(-1).sum()) for a, b in zip(ma, mb))
+
+    broken = []
+    with torch.inference_mode():
+        for name, prompt in prompts:
+            dr, mr, tok = run(p32, c32, "plain", prompt)
+            dk, mk, _ = run(params, cfg, "kernel", prompt, tok)
+            dp, mp, _ = run(params, cfg, "plain", prompt, tok)
+            free = err(dk, dr), err(dp, dr)
+            # each bf16 path once more, as it stands: is it reproducible?
+            again = [run(params, cfg, impl, prompt, tok)
+                     for impl in ("kernel", "plain")]
+            dk2, mk2, _ = run(params, cfg, "kernel", prompt, tok, mr)
+            dp2, mp2, _ = run(params, cfg, "plain", prompt, tok, mr)
+            pinned = err(dk2, dr), err(dp2, dr)
+            if not all(torch.equal(a, b) for m in (mk2, mp2)
+                       for a, b in zip(m, mr)):
+                fail(f"{cfg.name} witness {name}: pinned routing not taken")
+            held = free[0] <= 2 * free[1] + 1e-3
+            if not held:
+                broken.append(name)
+            pre, dec = slice(0, L), slice(L, 2 * L)
+            log(f"# witness {cfg.name} {name}: decode step 0 error vs fp32 "
+                f"/ scale, free: kernel {free[0]:.3e}, plain bf16 "
+                f"{free[1]:.3e} (rule {'held' if held else 'BROKEN'}); "
+                f"routing pinned to fp32's experts: kernel {pinned[0]:.3e},"
+                f" plain bf16 {pinned[1]:.3e}; top-k sets that differ, "
+                f"step 0 (of {sum(m.shape[0] for m in mr[dec])}): kernel "
+                f"vs plain {flips(mk[dec], mp[dec])}, kernel vs fp32 "
+                f"{flips(mk[dec], mr[dec])}, plain vs fp32 "
+                f"{flips(mp[dec], mr[dec])}; prefill (of "
+                f"{sum(m.shape[0] for m in mr[pre])}): "
+                f"{flips(mk[pre], mp[pre])}, {flips(mk[pre], mr[pre])}, "
+                f"{flips(mp[pre], mr[pre])}; run again, the same logits "
+                f"and top-k sets that differ (prefill + step 0): kernel "
+                f"{torch.equal(dk, again[0][0])} {flips(mk, again[0][1])}, "
+                f"plain bf16 {torch.equal(dp, again[1][0])} "
+                f"{flips(mp, again[1][1])}")
+            attn.check(f"witness {cfg.name} {name}")
+            if not pinned[0] <= 2 * pinned[1] + 1e-3:
+                fail(f"{cfg.name} witness {name}: with routing pinned the "
+                     f"kernel path's error {pinned[0]} vs plain bf16 "
+                     f"{pinned[1]}")
+    log(f"# witness {cfg.name}: {len(prompts)} prompts, the rule broken "
+        f"free on {broken or 'none'}, held on every one pinned")
+    del p32
+
+
 def granite_model_phase(torch, dev, gen, get_config) -> None:
     """Phase 18: ``model_phase`` on granite-moe-1b-a400m at full width and
     depth (24 layers, 16/8 heads of 64, 32 experts top-8), the float32
     reference upcast one block at a time, with each step's MoE routing
-    reported (flips against the reference, drops per prefill)."""
+    reported (flips against the reference, drops per prefill) and every
+    attention kernel call held against its plain version on the same
+    inputs; first ``routing_witness`` on the phase's prompt and on a
+    prompt from each of seeds 1-8 (generators of their own)."""
+    from repro_torch.serving.backends import init_torch_params
     cfg = get_config(GRANITE)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with RoutingTap() as tap:
-        params = model_phase(torch, cfg, dev, gen, tap=tap)
+    params = init_torch_params(cfg, 0, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                           device=dev)
+    prompts = [("phase 18's prompt", prompt)]
+    for seed in range(1, 9):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        prompts.append((f"seed {seed}", torch.randint(
+            0, cfg.vocab_size, (1, 512), generator=g, device=dev)))
+    with RoutingTap() as tap, AttentionTap() as attn:
+        routing_witness(torch, cfg, params, dev, prompts, tap, attn)
+        model_phase(torch, cfg, dev, gen, tap=tap, prompt=prompt,
+                    params=params, attn=attn)
     torch.cuda.synchronize()
     log(f"# phase model {GRANITE} ({cfg.num_layers} layers, "
         f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.dh}, "
@@ -1256,6 +1654,50 @@ def granite_serve(serve, drive, sla, get_config) -> dict:
         f"prefills, paged {n['paged']} = {Lr} x ({rec['decode_steps']} "
         f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
         f"{handoff} bytes")
+    return rec
+
+
+def hymba_serve(serve, drive, sla, get_config) -> dict:
+    """Phase 22: hymba-1.5b served disaggregated with phase 5's traffic;
+    every prefill through flash (banded) and every decode step (and each
+    of the 3 engines' warm-up steps) through dense decode over the ring,
+    once per layer exactly; no paged or WKV launch; each handoff the
+    request's 1024-row ring K/V (32 x 1024 x 5 x 64 x 2 bytes x 2 =
+    41,943,040) with ssm_h (32 x 1600 x 16 x 4 = 3,276,800) and conv (32 x
+    3 x 1600 x 2 = 307,200): 45,527,040 bytes whatever the prompt."""
+    cfg = get_config(HYMBA)
+    Lr, engines, requests = cfg.num_layers, 3, 16
+    rec, n = drive("serve-hymba", lambda: serve.main(
+        ["--arch", HYMBA] + SERVE_ARGS))
+    sla(rec)
+    if rec["completed"] != requests:
+        fail(f"hymba serve completed {rec['completed']} of {requests}")
+    if n["flash"] != Lr * rec["prefills"] or rec["prefills"] < requests:
+        fail(f"hymba serve: {n['flash']} flash launches for "
+             f"{rec['prefills']} prefills of {Lr} layers")
+    if n["dense"] != Lr * (rec["decode_steps"] + engines) \
+            or rec["decode_steps"] < 1:
+        fail(f"hymba serve: {n['dense']} dense decode launches for "
+             f"{rec['decode_steps']} decode steps + {engines} warm-ups of "
+             f"{Lr} layers")
+    if n["paged"] or n["wkv"]:
+        fail(f"hymba serve launched paged decode or WKV: {n}")
+    di = cfg.ssm_expand * cfg.d_model
+    handoff = Lr * (2 * cfg.sliding_window * cfg.num_kv_heads * cfg.dh * 2
+                    + di * cfg.ssm_state * 4 + (cfg.ssm_conv - 1) * di * 2)
+    moved = rec["transferred_MB"] * 2**20
+    # a request the elastic matcher leaves on its prefill engine (turned
+    # decode) is inserted there and moves nothing
+    if handoff != 45_527_040 or abs(moved - rec["transfers"] * handoff) > 0.5 \
+            or not (rec["transfers"] == requests
+                    or (rec.get("rate_matcher_moves")
+                        and rec["transfers"] < requests)):
+        fail(f"hymba serve moved {moved} bytes in {rec['transfers']} "
+             f"transfers; one handoff is {handoff} bytes")
+    log(f"# {HYMBA} serve: flash {n['flash']} = {Lr} x {rec['prefills']} "
+        f"prefills, dense {n['dense']} = {Lr} x ({rec['decode_steps']} "
+        f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
+        f"{handoff} bytes (ring K/V, ssm_h, conv) = {moved:.0f} bytes")
     return rec
 
 
@@ -1384,26 +1826,36 @@ def main() -> None:
         fail(f"non-causal flash attention disagrees: {err}")
     fl_err = max(fl_err, err)
 
-    def time_flash(S, H=16, Hkv=2, dh=128):
-        flops, nbytes = flash_work(1, S, S, H, Hkv, 0, dh)
-        cases = [flash_case(torch, gen, 1, S, S, H, Hkv, dev, dh)
+    def time_flash(S, H=16, Hkv=2, dh=128, window=0, rng=gen):
+        flops, nbytes = flash_work(1, S, S, H, Hkv, 0, dh, window)
+        cases = [flash_case(torch, rng, 1, S, S, H, Hkv, dev, dh)
                  for _ in range(copies(nbytes))]
         lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
+        kernel = functools.partial(fl_ops.flash_attention, window=window)
+        plain = functools.partial(flash_attention_ref, window=window)
+        # SDPA takes a window only as an explicit mask (a yardstick only)
+        i = torch.arange(S, device=dev)
+        banded = 0 < window < S
+        band = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+                if banded else None)
 
         def sdpa(q, k, v):
+            if banded:
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                      enable_gqa=True)
             return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                                   enable_gqa=True)
 
         res = {
-            "ms": timer(fl_ops.flash_attention, cases),
-            "device_ms": timer.device(fl_ops.flash_attention, cases),
-            "plain_ms": timer(flash_attention_ref, cases, runs=3),
+            "ms": timer(kernel, cases),
+            "device_ms": timer.device(kernel, cases),
+            "plain_ms": timer(plain, cases, runs=3),
             "library_ms": timer(sdpa, lib_cases),
             "library_device_ms": timer.device(sdpa, lib_cases),
         }
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        log(f"# flash time S={S} H={H} Hkv={Hkv} dh={dh} ({len(cases)} input "
-            "sets): " + json.dumps(res))
+        log(f"# flash time S={S} H={H} Hkv={Hkv} dh={dh} window={window} "
+            f"({len(cases)} input sets): " + json.dumps(res))
         return res
 
     rows["flash"] = time_flash(512)
@@ -1566,11 +2018,11 @@ def main() -> None:
     dense_err = max(dense_err, dense_split_edges(torch, dev, gen, dec_ops,
                                                  decode_attention_ref))
 
-    def time_dense(lengths, Smax, H=16, Hkv=2, dh=128):
+    def time_dense(lengths, Smax, H=16, Hkv=2, dh=128, rng=gen):
         B = len(lengths)
-        first = dense_case(torch, gen, lengths, Smax, H, Hkv, dev, dh)
+        first = dense_case(torch, rng, lengths, Smax, H, Hkv, dev, dh)
         nbytes = 2 * first[1].numel() * first[1].element_size()
-        cases = [first] + [dense_case(torch, gen, lengths, Smax, H, Hkv, dev,
+        cases = [first] + [dense_case(torch, rng, lengths, Smax, H, Hkv, dev,
                                       dh)
                            for _ in range(copies(nbytes) - 1)]
         cols = torch.arange(Smax, device=dev)
@@ -1676,6 +2128,32 @@ def main() -> None:
     t0 = time.perf_counter()
     wkv_err, rows["wkv"] = wkv_phase(torch, dev, gen, timer)
     log(f"# phase kernels (wkv): {time.perf_counter() - t0:.1f} s")
+
+    # 3g) hymba-1.5b's heads (25/5 of 64, G = 5): flash without and with
+    #     its window of 1024, dense decode over its 1024-row ring
+    #     (from a generator of its own, and timed from it: a phase added
+    #     here leaves the inputs of every later phase as they were)
+    t0 = time.perf_counter()
+    gen_3g = torch.Generator(device=dev)
+    gen_3g.manual_seed(20)
+    errs = hymba_kernels(torch, dev, gen_3g, fl_ops, dec_ops,
+                         flash_attention_ref, decode_attention_ref)
+    H, Hkv = HEADS_HYMBA
+    # the serve's own call: S = 512 with the window, launched unbanded
+    rows["flash"]["hymba"] = {
+        "max_abs_err": errs["flash"],
+        **time_flash(512, H, Hkv, 64, HYMBA_WINDOW, rng=gen_3g)}
+    rows["flash"]["hymba_window"] = {
+        "window": HYMBA_WINDOW,
+        **time_flash(2048, H, Hkv, 64, HYMBA_WINDOW, rng=gen_3g)}
+    rows["dense"]["hymba_ring"] = {
+        "max_abs_err": errs["dense"],
+        **time_dense([544] * 8, HYMBA_WINDOW, H, Hkv, 64, rng=gen_3g)}
+    rows["dense"]["hymba_ring"]["wrapped"] = time_dense(
+        [HYMBA_WINDOW] * 8, HYMBA_WINDOW, H, Hkv, 64, rng=gen_3g)
+    fl_err, dense_err = max(fl_err, errs["flash"]), max(dense_err,
+                                                        errs["dense"])
+    log(f"# phase kernels (hymba): {time.perf_counter() - t0:.1f} s")
 
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
@@ -1845,6 +2323,36 @@ def main() -> None:
     t0 = time.perf_counter()
     profile_phase(torch, get_config(GRANITE), dev)
     log(f"# phase granite profile: {time.perf_counter() - t0:.1f} s")
+
+    # 21) hymba-1.5b: full width and depth, a 1,100-token prompt past the
+    #     window and 8 decode steps with the ring wrapped, three ways
+    hymba = get_config(HYMBA)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = hymba_model_phase(torch, hymba, dev, gen)
+    torch.cuda.synchronize()
+    log(f"# phase hymba model ({hymba.num_layers} layers, "
+        f"{hymba.num_heads}/{hymba.num_kv_heads} heads of {hymba.dh}, window "
+        f"{hymba.sliding_window}, SSM state {hymba.ssm_state}, "
+        f"{n_params(params) / 1e9:.3f} B parameters): "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+    # 22) hymba served disaggregated: phase 5's traffic, the ring and the
+    #     SSM state handed over
+    t0 = time.perf_counter()
+    hymba_serve(serve, drive, sla, get_config)
+    log(f"# phase hymba serve: {time.perf_counter() - t0:.1f} s")
+
+    # 23) hymba profile: a decode step of 8 slots and a 512-token prefill,
+    #     with the SSM branch's share of the device time
+    t0 = time.perf_counter()
+    profile_phase(torch, hymba, dev)
+    log(f"# phase hymba profile: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

@@ -58,6 +58,18 @@
 //     __grid_constant__ parameters;
 //   - the causal K/V loop ends at the tile's last position, and the
 //     heaviest tiles (the last positions) are launched first;
+//   - a sliding window (window > 0, causal only: hymba-1.5b's 1024) bands
+//     row pos to the keys pos - window < col <= pos, the TPU model's
+//     sliding_window_attention_xla. The loop then starts at the K tile
+//     that holds the first key of the CTA's lowest position (its packed
+//     rows span floor(64/G) positions, so the others mask the columns
+//     below their own bound in the first tiles), and every stage slot and
+//     mbarrier parity counts from that first tile, in the producer and
+//     the consumers alike. A window that covers every row's whole past
+//     starts at tile 0 and masks nothing more: the output is bit for bit
+//     the unwindowed one. The window is a template parameter: compiled in,
+//     its bounds cost the unwindowed calls 9 registers at dh 128 (20 at
+//     64) and up to 6% of their time (PERF.md), so they compile without;
 //   - the epilogue stages O in bf16 through the Q tile's shared memory
 //     (an XOR swizzle keeps it free of bank conflicts) and writes 16-byte
 //     rows, skipping positions past Sq.
@@ -317,13 +329,14 @@ __device__ __forceinline__ void issue_pv(float* o, const uint32_t* p,
   }
 }
 
-template <int DH>
+template <int DH, bool WINDOW>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
-                 int G, int q_offset, int causal, float scale_log2) {
+                 int G, int q_offset, int causal, int window,
+                 float scale_log2) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms: 1 KB
@@ -347,6 +360,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int p_last = min(Sq, p0 + P) - 1;
   const int kv_end = causal ? min(Skv, q_offset + p_last + 1) : Skv;
   const int n_kv = (kv_end + BN - 1) / BN;
+  // the window's first key of the lowest position, rounded down to its
+  // K tile; tiles j0 .. n_kv-1 are walked, slot and parity from t = j - j0
+  const int pos_min = q_offset + p0;
+  const int j0 =
+      WINDOW ? min(max(0, pos_min - window + 1) / BN, n_kv) : 0;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -375,9 +393,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_expect_tx(bar_q, uint32_t(NH) * live_rows * 128u);
       for (int h = 0; h < NH; ++h)
         tma_load(sQ + h * Q_HALF, &map_q, bar_q, 64 * h, hk * G, p0, b);
-      for (int j = 0; j < n_kv; ++j) {
-        const int s = j % STAGES;
-        const uint32_t free_parity = ((j / STAGES) & 1) ^ 1;
+      for (int j = j0; j < n_kv; ++j) {
+        const int t = j - j0;
+        const int s = t % STAGES;
+        const uint32_t free_parity = ((t / STAGES) & 1) ^ 1;
         const uint32_t kst = sK + s * KV_BYTES, vst = sV + s * KV_BYTES;
         mbar_wait(k_empty(s), free_parity);
         mbar_expect_tx(k_full(s), KV_BYTES);
@@ -401,7 +420,11 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int posA = q_offset + p0 + rA / G;
   const int posB = q_offset + p0 + (rA + 8) / G;
   const int cq = 2 * (lane & 3);             // first of its column pairs
-  const int pos_min = q_offset + p0;
+  // the window's bounds: a row masks the columns <= its lo; a tile with
+  // a column <= lo_max crosses some live row's bound
+  const int loA = posA - window;
+  const int loB = posB - window;
+  const int lo_max = q_offset + p_last - window;
   // a masked score, raw: scaled it is NEG_INF (up to rounding)
   const float neg_raw = NEG_INF / scale_log2;
 
@@ -414,18 +437,21 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   float lA = 0.f, lB = 0.f;                  // this thread's part of l
 
   // scores of tile j -> probabilities in place (masked where the tile
-  // crosses Skv or the diagonal); returns the running rows' rescale
-  // factors
+  // crosses Skv, the diagonal or a window's lower bound); returns the
+  // running rows' rescale factors
   auto softmax = [&](int j, float& alphaA, float& alphaB) {
     const int k0 = j * BN;
-    if (k0 + BN > Skv || (causal && k0 + BN - 1 > pos_min)) {
+    if (k0 + BN > Skv || (causal && k0 + BN - 1 > pos_min) ||
+        (WINDOW && k0 <= lo_max)) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + 8 * i + cq + (e & 1);
           const int pos = e < 2 ? posA : posB;
-          if (col >= Skv || (causal && col > pos)) acc_s[4 * i + e] = neg_raw;
+          const int lo = e < 2 ? loA : loB;
+          if (col >= Skv || (causal && col > pos) || (WINDOW && col <= lo))
+            acc_s[4 * i + e] = neg_raw;
         }
       }
     }
@@ -489,7 +515,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   };
 
   mbar_wait(bar_q, 0);
-  if (n_kv > 0) {
+  if (n_kv > j0) {                           // tile j0: slot 0, parity 0
     float aA, aB;
     mbar_wait(k_full(0), 0);
     fence_regs<32>(acc_s);
@@ -499,14 +525,15 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_wait<0>();
     fence_regs<32>(acc_s);
     if (lane == 0) mbar_arrive(k_empty(0));
-    softmax(0, aA, aB);
+    softmax(j0, aA, aB);
     pack_p();
   }
-  for (int j = 1; j < n_kv; ++j) {
-    const int s = j % STAGES, sp = (j - 1) % STAGES;
+  for (int j = j0 + 1; j < n_kv; ++j) {
+    const int t = j - j0;
+    const int s = t % STAGES, sp = (t - 1) % STAGES;
     float aA, aB;
-    mbar_wait(k_full(s), (j / STAGES) & 1);
-    mbar_wait(v_full(sp), ((j - 1) / STAGES) & 1);
+    mbar_wait(k_full(s), (t / STAGES) & 1);
+    mbar_wait(v_full(sp), ((t - 1) / STAGES) & 1);
     fence_regs<32>(acc_s);
     fence_regs<DH / 2>(acc_o);
     fence_regs<16>(pf);
@@ -526,9 +553,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     rescale_o(aA, aB);
     pack_p();
   }
-  if (n_kv > 0) {
-    const int sp = (n_kv - 1) % STAGES;
-    mbar_wait(v_full(sp), ((n_kv - 1) / STAGES) & 1);
+  if (n_kv > j0) {
+    const int t = n_kv - 1 - j0;
+    const int sp = t % STAGES;
+    mbar_wait(v_full(sp), (t / STAGES) & 1);
     fence_regs<DH / 2>(acc_o);
     fence_regs<16>(pf);
     wgmma_fence();
@@ -629,16 +657,18 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int Hh,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the head-dim-DH instantiation's launch (its shared-memory limit raised
-// once); G and the shapes are checked by the caller
-template <int DH>
+// the (head dim DH, window or not) instantiation's launch (its
+// shared-memory limit raised once); G and the shapes are checked by the
+// caller
+template <int DH, bool WINDOW>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Skv, int H, int Hkv, int q_offset, int causal,
-           float scale, cudaStream_t stream) {
+           int window, float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<DH, WINDOW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(Layout<DH>::SMEM_BYTES));
     if (err != cudaSuccess) return int(err);
     configured = true;
@@ -651,31 +681,33 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
       !make_map(&mv, v, B, Skv, Hkv, DH, 1, BN))
     return int(cudaErrorInvalidValue);
   dim3 grid((Sq + P - 1) / P, Hkv, B);
-  flash_fwd_kernel<DH><<<grid, NTHREADS, Layout<DH>::SMEM_BYTES, stream>>>(
+  flash_fwd_kernel<DH, WINDOW>
+      <<<grid, NTHREADS, Layout<DH>::SMEM_BYTES, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, H, G, q_offset,
-      causal, scale * LOG2E);
+      causal, window, scale * LOG2E);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
 // q [B,Sq,H,dh], k/v [B,Skv,Hkv,dh], o [B,Sq,H,dh]: contiguous bf16,
-// 16-byte aligned; dh = 64 or 128; G = H/Hkv from 1 to 16. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes
-// it does not take).
+// 16-byte aligned; dh = 64 or 128; G = H/Hkv from 1 to 16; window 0 (none)
+// or > 0 with causal. Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for shapes it does not take).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int Sq,
                                    int Skv, int H, int Hkv, int dh,
-                                   int q_offset, int causal, float scale,
-                                   void* stream) {
-  if (Hkv <= 0 || H % Hkv || Skv <= 0 || q_offset < 0)
+                                   int q_offset, int causal, int window,
+                                   float scale, void* stream) {
+  if (Hkv <= 0 || H % Hkv || Skv <= 0 || q_offset < 0 || window < 0 ||
+      (window > 0 && !causal))
     return int(cudaErrorInvalidValue);
   if (H / Hkv > 16 || (dh != 64 && dh != 128))
     return int(cudaErrorInvalidValue);
   if (Sq <= 0 || B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dh == 128 ? launch<128>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                                 causal, scale, st)
-                   : launch<64>(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset,
-                                causal, scale, st);
+  auto run = window > 0 ? (dh == 128 ? launch<128, true> : launch<64, true>)
+                        : (dh == 128 ? launch<128, false> : launch<64, false>);
+  return run(q, k, v, o, B, Sq, Skv, H, Hkv, q_offset, causal, window, scale,
+             st);
 }

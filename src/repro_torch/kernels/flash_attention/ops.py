@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 MAX_GROUP = 16
 # the head dims the kernel is instantiated for
 HEAD_DIMS = (64, 128)
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                            ctypes.c_void_p]
 
 
@@ -45,15 +45,22 @@ def _check_inputs(q, k, v):
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    window: int = 0):
     """Causal (or full) GQA attention. q: [B,Sq,H,dh]; k, v:
     [B,Skv,Hkv,dh] un-expanded (the kernel maps q head h to KV head
     h // (H/Hkv), and packs the H/Hkv heads of a group into its rows, so
-    it takes H/Hkv up to MAX_GROUP and dh in HEAD_DIMS). Returns
-    [B,Sq,H,dh] in q.dtype."""
+    it takes H/Hkv up to MAX_GROUP and dh in HEAD_DIMS). ``window`` > 0
+    bands causal attention to the ``window`` keys up to each row's
+    position (0: no window; the kernel is launched unbanded when no row's
+    band starts past key 0). Returns [B,Sq,H,dh] in q.dtype."""
     _check_inputs(q, k, v)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window must be 0 or > 0 with causal=True, got "
+                         f"window={window}, causal={causal}")
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+        return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                   window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -70,12 +77,16 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0):
                          f"KV head, more than {MAX_GROUP}")
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if window >= Sq + q_offset:
+        # every row's band reaches key 0: the unbanded build computes the
+        # same output bit for bit, without the per-row lower bound
+        window = 0
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         err = _lib().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-            Skv, H, Hkv, dh, int(q_offset), int(bool(causal)),
+            Skv, H, Hkv, dh, int(q_offset), int(bool(causal)), int(window),
             1.0 / math.sqrt(dh), stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1

@@ -9,11 +9,17 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        window: int = 0):
     """q: [B,Sq,H,dh]; k, v: [B,Skv,Hkv,dh]; H % Hkv == 0 (query head h
     reads KV head h // (H/Hkv)). fp32 math, output in q.dtype. Causal rows
-    sit at absolute positions q_offset + i. A fully masked row gives 0, as
-    the kernels do (finite NEG_INF and the m > 0.5*NEG_INF guard)."""
+    sit at absolute positions q_offset + i. ``window`` > 0 (causal only)
+    bands them: the row at position pos sees key column col iff
+    pos - window < col <= pos, the reference's
+    ``sliding_window_attention_xla``. A fully masked row gives 0, as the
+    kernels do (finite NEG_INF and the m > 0.5*NEG_INF guard)."""
+    if window and not causal:
+        raise ValueError("a sliding window needs causal attention")
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -23,6 +29,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0):
         rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
         cols = torch.arange(Skv, device=q.device)[None, :]
         s = s.masked_fill(cols > rows, NEG_INF)
+        if window:
+            s = s.masked_fill(cols <= rows - window, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = torch.where(m > 0.5 * NEG_INF, p, torch.zeros_like(p))

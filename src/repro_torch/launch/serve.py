@@ -17,12 +17,16 @@ decode piggybacked between chunks (``ChunkedPiggybackScheduler``) and the
       --scheduler prefix-affinity --workload sessions --turns 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       --requests 16 --isl 512 --osl 64 --slots 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+      --requests 16 --isl 512 --osl 64 --slots 8
 
-``--arch rwkv6-1.6b`` (attention-free) serves disaggregated only: the
-prefill engine hands its O(1) recurrent state to a dense decode engine.
-Its prompts are never chunked, so ``--mode coloc`` and ``--scheduler
-prefix-affinity`` (both chunked prefill) are refused at start-up, where
-the reference fails inside its chunked prefill.
+``--arch rwkv6-1.6b`` (attention-free) and ``--arch hymba-1.5b`` (hybrid:
+sliding-window attention beside a selective SSM) serve disaggregated
+only: the prefill engine hands its O(1) recurrent state, or hymba's
+1024-row KV ring and SSM state, to a dense decode engine. Their prompts
+are never chunked, so ``--mode coloc`` and ``--scheduler prefix-affinity``
+(both chunked prefill) are refused at start-up, where the reference fails
+inside its chunked prefill.
 
 The full configuration runs on the card (``--device`` defaults to
 ``cuda``); ``--smoke`` takes the smoke-sized configuration and
@@ -121,7 +125,9 @@ def build_workload(args, vocab: int):
 
 def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b",
+                    help="architecture; rwkv6-1.6b and hymba-1.5b serve "
+                    "disaggregated only (their prompts are never chunked)")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's smoke-sized configuration")
     ap.add_argument("--device", default=None,

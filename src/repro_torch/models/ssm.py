@@ -1,0 +1,168 @@
+"""Selective SSM (Mamba-style) branch of the hymba hybrid block: the
+PyTorch counterpart of ``repro.models.ssm``.
+
+The linear time-varying recurrence
+
+    h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t,    y_t = C_t h_t + D x_t
+
+with input-dependent (dt, B, C) and a single shared dt channel per
+position, as in the reference. ``ssm_apply`` runs a prompt in chunks of
+256 positions (zero-padded to whole chunks: a pad position has dt = 0,
+so a = 1 and b = 0 and the state passes through it unchanged), each
+chunk by a log-depth scan over its positions; ``ssm_step`` runs one
+token. The JAX package evaluates the chunk with XLA's
+``associative_scan`` and has no Pallas kernel for it, so the port keeps
+it in plain PyTorch: a Hillis-Steele doubling scan, log2(256) = 8 steps
+of whole-chunk tensor ops, not a launch per token.
+
+The state ``{"h": [B,di,ds] fp32, "conv": [B,K-1,di]}`` comes back as new
+tensors; the model copies it into its cache rows.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+
+f32 = torch.float32
+CHUNK = 256
+
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, device
+             ) -> Dict[str, torch.Tensor]:
+    """One layer's SSM parameters with the reference's distributions
+    (``init_ssm``): ``in_proj``, ``x_proj`` and ``out_proj`` of std
+    1/sqrt(D), a depthwise ``conv_w`` of std 0.5, all in the model dtype;
+    ``dt_bias`` = 0, ``A_log`` = log(1..ds) per channel and ``D_skip`` = 1
+    stay fp32 in a bf16 configuration."""
+    D = cfg.d_model
+    di = cfg.ssm_expand * D
+    ds, dc = cfg.ssm_state, cfg.ssm_conv
+    dt = cfg.tdtype
+    s = 1.0 / math.sqrt(D)
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=gen, dtype=f32, device=device)
+        return (x * std).to(dt)
+
+    return {
+        "in_proj": normal((D, 2 * di), s),
+        "conv_w": normal((dc, di), 0.5),
+        "x_proj": normal((di, 2 * ds + 1), s),
+        "dt_bias": torch.zeros((di,), dtype=f32, device=device),
+        "A_log": torch.log(torch.arange(1, ds + 1, dtype=f32, device=device)
+                           )[None, :].expand(di, ds).contiguous(),
+        "D_skip": torch.ones((di,), dtype=f32, device=device),
+        "out_proj": normal((di, D), s),
+    }
+
+
+def init_ssm_state(cfg: ModelConfig, batch: int, *, device
+                   ) -> Dict[str, torch.Tensor]:
+    """Zero state: ``h`` [B,di,ds] fp32, ``conv`` [B,K-1,di] in the model
+    dtype."""
+    di = cfg.ssm_expand * cfg.d_model
+    return {"h": torch.zeros((batch, di, cfg.ssm_state), dtype=f32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, di),
+                                dtype=cfg.tdtype, device=device)}
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) = logaddexp(x, 0) at every x
+    (``F.softplus`` returns x itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _causal_conv(x, conv_w, conv_state):
+    """x: [B,S,di]; conv_w: [K,di] depthwise; conv_state: [B,K-1,di] (the
+    K-1 inputs before x). Returns (out [B,S,di], the last K-1 inputs)."""
+    K = conv_w.shape[0]
+    S = x.shape[1]
+    xp = torch.cat([conv_state.to(x.dtype), x], dim=1)       # [B,S+K-1,di]
+    out = sum(xp[:, i:i + S] * conv_w[i] for i in range(K))
+    new_state = xp[:, -(K - 1):] if K > 1 else conv_state
+    return out, new_state
+
+
+def _scan_chunk(a, b, h0):
+    """Inclusive scan of h_t = a_t h_{t-1} + b_t over one chunk's
+    positions (dim 1), by doubling: after the step of stride d each
+    position holds the composition of the up to 2d steps that end at it,
+    (a, b)[t] <- (a[t-d] a[t], a[t] b[t-d] + b[t]). a, b: [B,Lc,di,ds]
+    fp32; h0: [B,di,ds]. Returns (h_all [B,Lc,di,ds], h_last)."""
+    Lc = a.shape[1]
+    d = 1
+    while d < Lc:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], dim=1)
+        d *= 2
+    h_all = a * h0[:, None] + b
+    return h_all, h_all[:, -1]
+
+
+def _project(params, xs, ds: int):
+    """(B, C, delta) of the selective projection, fp32: delta =
+    softplus(dt) + 1e-4."""
+    proj = xs @ params["x_proj"]                              # [...,2ds+1]
+    return (proj[..., :ds].to(f32), proj[..., ds:2 * ds].to(f32),
+            softplus(proj[..., -1].to(f32)) + 1e-4)
+
+
+def ssm_apply(params, x, state, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,S,D] -> (y [B,S,D], new state) from ``state``."""
+    B, S, D = x.shape
+    ds = cfg.ssm_state
+    dt_ = x.dtype
+    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # [B,S,di]
+    xs, conv_state = _causal_conv(xs, params["conv_w"], state["conv"])
+    xs = F.silu(xs.to(f32)).to(dt_)
+    B_ssm, C_ssm, delta = _project(params, xs, ds)
+    A = -torch.exp(params["A_log"])                           # [di,ds]
+    xf = xs.to(f32)
+    Lc = min(CHUNK, S)
+    pad = (-S) % Lc
+    # a pad position: delta = 0 -> a = 1, b = 0, the state passes through
+    xp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (xf, B_ssm, C_ssm))
+    dp = F.pad(delta, (0, pad))[..., None]                    # [B,Sp,1]
+    h = state["h"]
+    ys = []
+    for lo in range(0, S + pad, Lc):
+        dck = dp[:, lo:lo + Lc]                               # [B,Lc,1]
+        a = torch.exp(dck[..., None] * A)                     # [B,Lc,di,ds]
+        b = (dck * xp[:, lo:lo + Lc])[..., None] * Bp[:, lo:lo + Lc, None, :]
+        h_all, h = _scan_chunk(a, b, h)
+        ys.append(torch.einsum("blds,bls->bld", h_all, Cp[:, lo:lo + Lc]))
+    y = torch.cat(ys, dim=1)[:, :S]
+    y = y + xf * params["D_skip"]
+    y = y * F.silu(z.to(f32))
+    return y.to(dt_) @ params["out_proj"], {"h": h, "conv": conv_state}
+
+
+def ssm_step(params, x, state, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token decode. x: [B,1,D] -> (y [B,1,D], new state)."""
+    ds = cfg.ssm_state
+    dt_ = x.dtype
+    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # [B,1,di]
+    conv_w = params["conv_w"]
+    K = conv_w.shape[0]
+    xp = torch.cat([state["conv"].to(dt_), xs], dim=1)        # [B,K,di]
+    conv_out = sum(xp[:, i] * conv_w[i] for i in range(K))[:, None]
+    xs = F.silu(conv_out.to(f32)).to(dt_)
+    B_ssm, C_ssm, delta = (t[:, 0] for t in _project(params, xs, ds))
+    A = -torch.exp(params["A_log"])
+    xf = xs.to(f32)[:, 0]                                     # [B,di]
+    a = torch.exp(delta[:, None, None] * A)                   # [B,di,ds]
+    b = (delta[:, None] * xf)[..., None] * B_ssm[:, None, :]
+    h = a * state["h"] + b
+    y = torch.einsum("bds,bs->bd", h, C_ssm)
+    y = y + xf * params["D_skip"]
+    y = y * F.silu(z.to(f32)[:, 0])
+    return (y.to(dt_) @ params["out_proj"])[:, None], {"h": h,
+                                                       "conv": xp[:, 1:]}

@@ -36,8 +36,18 @@ family with every FFN the reference's capacity-based MoE
 (``models/moe.py``); attention, both KV layouts and the kernels are the
 same. The serving paths drop the MoE metrics, as the reference's do.
 
-kv-quant, the sliding window and the hybrid family come with later slices
-(``unported`` names which).
+The hybrid family (``cfg.block == "hybrid"``, e.g. hymba-1.5b) runs an
+attention branch and a selective-SSM branch (``models/ssm.py``) side by
+side on the same normed input and averages their normed outputs. With a
+sliding window W its attention is banded (the flash kernel's ``window``)
+and its dense KV cache is a ring of C = W rows, token ``pos`` in slot
+``pos % W``; beside it each layer keeps the SSM state ``ssm_h`` [B,di,ds]
+fp32 and ``conv`` [B,K-1,di]. What a prefill hands over is that fixed-size
+ring and state, whatever the prompt's length. Like RWKV it has no paged
+layout and its prompts are never chunked.
+
+kv-quant, the frontends and a sliding window on the attn block come with
+later slices (``unported`` names which).
 """
 from __future__ import annotations
 
@@ -51,7 +61,7 @@ from repro_torch.kernels.decode_attention.ops import (decode_attention,
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
-from repro_torch.models import moe, rwkv6
+from repro_torch.models import moe, rwkv6, ssm
 from repro_torch.models.config import ModelConfig
 
 f32 = torch.float32
@@ -65,18 +75,21 @@ def _check_impl(impl: str) -> None:
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
-    or None for the families it covers: dense attention, MoE and
-    RWKV-6."""
-    if cfg.block not in ("attn", "rwkv"):
-        return f"{cfg.block} blocks come with the hybrid slice"
+    or None for the families it covers: dense attention, MoE, RWKV-6 and
+    the hybrid family (with or without its sliding window)."""
+    if cfg.block not in ("attn", "rwkv", "hybrid"):
+        return f"{cfg.block} blocks are no family of the reference"
     if cfg.frontend:
-        return f"the {cfg.frontend} frontend comes with the hybrid slice"
+        return f"the {cfg.frontend} frontend comes with the frontends slice"
     if cfg.block == "rwkv":         # its own channel mix; no KV to quantize
         return None
     if cfg.kv_quant:
         return "kv-quant comes with the kv-quant / sliding-window slice"
-    if cfg.sliding_window:
-        return "the sliding window comes with the kv-quant / sliding-window slice"
+    if cfg.sliding_window and cfg.block == "attn":
+        # no configuration reaches the attn block's windowed chunked and
+        # paged paths, in the reference either
+        return ("a sliding window on the attn block comes with the "
+                "kv-quant / sliding-window slice")
     return None
 
 
@@ -88,9 +101,9 @@ def _check_family(cfg: ModelConfig) -> None:
 
 def _check_attn(cfg: ModelConfig, what: str) -> None:
     """Chunked prefill and the paged layout are for the attention family,
-    as in the reference: an RWKV prompt runs whole (its recurrence is
-    already chunked inside the WKV), and its O(1) state has nothing to
-    page."""
+    as in the reference: an RWKV or hybrid prompt runs whole (its
+    recurrence is already chunked inside its scan), and a recurrent state
+    or a fixed-size ring has nothing to page."""
     _check_family(cfg)
     if cfg.block != "attn":
         raise ValueError(f"{cfg.name}: {what} is for the attention family "
@@ -133,7 +146,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     """Random parameters with the reference's distributions and scales
     (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
     ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer; an MoE
-    layer's FFN under ``p["moe"]``), drawn
+    layer's FFN under ``p["moe"]``; a hybrid layer's SSM under
+    ``p["ssm"]`` with its two output norms), drawn
     from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
     the same weights convert the JAX ones (``repro_torch.convert``)."""
@@ -177,6 +191,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
                 zeros(Hkv, dh)
         if cfg.qk_norm:
             p["q_norm"], p["k_norm"] = ones(dh), ones(dh)
+        if cfg.block == "hybrid":
+            p["ssm"] = ssm.init_ssm(gen, cfg, device=device)
+            p["attn_out_norm"], p["ssm_out_norm"] = ones(D), ones(D)
         blocks.append(p)
     params = {
         "embed": _normal(gen, (V, D), 0.02, device, dt),
@@ -268,9 +285,11 @@ def _kernel_ok(cfg: ModelConfig) -> None:
 
 def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
               impl: str = "kernel"):
-    """Full causal self-attention over x [B,S,D]. Returns (attn_out,
-    (k, v)). The kernel takes the un-expanded [B,S,Hkv,dh] K/V and maps
-    query heads to KV heads itself (the reference expands first)."""
+    """Full causal self-attention over x [B,S,D], banded to
+    ``cfg.sliding_window`` keys where the config has one. Returns
+    (attn_out, (k, v)). The kernel takes the un-expanded [B,S,Hkv,dh] K/V
+    and maps query heads to KV heads itself (the reference expands
+    first)."""
     _check_impl(impl)
     B, S, _ = x.shape
     positions = pos_offset + torch.arange(S, device=x.device)[None, :]
@@ -279,11 +298,12 @@ def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
     if impl == "kernel":
         _kernel_ok(cfg)
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            causal=True)
+                            causal=True, window=cfg.sliding_window)
     else:
         hmap = _head_map(cfg, x.device)
         o = flash_attention_ref(q, L.expand_kv(k, hmap),
-                                L.expand_kv(v, hmap), causal=True)
+                                L.expand_kv(v, hmap), causal=True,
+                                window=cfg.sliding_window)
     return _attn_out(p, o.to(x.dtype), cfg), (k, v)
 
 
@@ -318,16 +338,24 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
                 impl: str = "kernel"):
     """One decode token against the dense layout. x1: [B,1,D] (normed);
     caches [B,C,Hkvp,dh]; pos: [B] int32 per-slot positions. Writes this
-    token's K/V at ``min(pos, C-1)`` (in place: the reference returns new
-    caches), then attends over the columns ``<= pos``. ``impl="kernel"``
-    is kernel 3 with ``lengths = min(pos+1, C)``; ``"plain"`` the shared
-    ``_decode_attend`` core."""
+    token's K/V (in place: the reference returns new caches) at
+    ``min(pos, C-1)``, or, for a sliding window W over a ring of C = W
+    rows, at ``pos % W``; then attends over the positions ``<= pos`` (and
+    ``> pos - W``). ``impl="kernel"`` is kernel 3 with ``lengths =
+    min(pos+1, C)``: on the ring every slot below that length holds one of
+    the window's positions, and the softmax does not depend on the slots'
+    order. ``"plain"`` is the shared ``_decode_attend`` core under the
+    reference's position mask."""
     _check_impl(impl)
     B, C = x1.shape[0], k_cache.shape[1]
+    W = cfg.sliding_window
+    if W and C != W:
+        raise ValueError(f"{cfg.name}: a sliding window of {W} decodes over "
+                         f"a ring of {W} rows, not {C}")
     q, k, v = _qkv(p, x1, cfg, pos[:, None])
     pos_l = pos.long()
     bidx = torch.arange(B, device=x1.device)
-    slot = pos_l.clamp(max=C - 1)
+    slot = pos_l % C if W else pos_l.clamp(max=C - 1)
     k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
     v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
     if impl == "kernel":
@@ -336,7 +364,14 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
         o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
                              lengths)[:, None]
     else:
-        valid = torch.arange(C, device=x1.device)[None, :] <= pos_l[:, None]
+        # each column's position: slot c of the ring holds the latest
+        # position <= pos that is c modulo C
+        kpos = torch.arange(C, device=x1.device)[None, :]
+        if W:
+            kpos = pos_l[:, None] - (pos_l[:, None] - kpos) % C
+        valid = (kpos <= pos_l[:, None]) & (kpos >= 0)
+        if W:
+            valid &= kpos > pos_l[:, None] - W
         o = _decode_attend(q, k_cache, v_cache, valid, cfg)
     return _attn_out(p, o.to(x1.dtype), cfg), (k_cache, v_cache)
 
@@ -401,23 +436,55 @@ def _ffn(p, x, cfg: ModelConfig):
     return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"])
 
 
+def _hybrid_mix(p, attn_out, ssm_out, cfg: ModelConfig):
+    """The hybrid block's branch merge: the mean of the two normed
+    branches."""
+    return 0.5 * (L.rms_norm(attn_out, p["attn_out_norm"], cfg.norm_eps)
+                  + L.rms_norm(ssm_out, p["ssm_out_norm"], cfg.norm_eps))
+
+
+def _ring(t, W: int):
+    """A prompt's K or V [B,S,Hkvp,dh] -> the W-row ring [B,W,Hkvp,dh]:
+    position ``pos`` in slot ``pos % W`` (the last W positions rolled by
+    ``(S - W) % W``), or zero-padded to W rows when S < W."""
+    B, S = t.shape[:2]
+    if S >= W:
+        return torch.roll(t[:, S - W:], shifts=(S - W) % W, dims=1)
+    return torch.cat([t, t.new_zeros((B, W - S) + t.shape[2:])], dim=1)
+
+
 def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     """One layer over the prompt; returns (x, cache entry): {"k","v":
-    [B,S,Hkvp,dh]}, or an RWKV layer's final state."""
+    [B,S,Hkvp,dh]}, an RWKV layer's final state, or a hybrid layer's
+    K/V (the W-row ring under a sliding window) with its SSM state
+    ``ssm_h``/``conv``."""
     if cfg.block == "rwkv":
         state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
         return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
+    entry = {"k": k, "v": v}
+    if cfg.block == "hybrid":
+        ssm_out, state = ssm.ssm_apply(
+            p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
+                                             device=x.device), cfg)
+        attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
+        if cfg.sliding_window:      # (the reference's placement needs W)
+            entry = {kk: _ring(t, cfg.sliding_window)
+                     for kk, t in entry.items()}
+        entry.update(ssm_h=state["h"], conv=state["conv"])
     x = _ffn(p, x + attn_out, cfg)
-    return x, {"k": k, "v": v}
+    return x, entry
 
 
 def prefill_full(params, cfg: ModelConfig, inputs, *,
                  capacity: Optional[int] = None, impl: str = "kernel"):
     """Single-shot prefill. inputs: {"tokens": [B,S] int}. Returns (logits
     [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]}); for RWKV
-    the cache is the state after the prompt, and ``capacity`` is unused."""
+    the cache is the state after the prompt, and ``capacity`` is unused;
+    a hybrid cache is S rows wide (W, the ring, under a sliding window) and
+    carries ``ssm_h``/``conv``: as in the reference, only the attention
+    family grows to ``capacity``."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, inputs["tokens"])
     B, S, _ = x.shape
@@ -443,7 +510,9 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
     """Empty dense cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B] int32}
     (decoding starts at pos 0), or for RWKV the zero state {"s":
     [L,B,H,N,N] fp32, "tm_x", "cm_x": [L,B,D], "pos"} (no capacity): the
-    reference's ``init_cache``."""
+    reference's ``init_cache``. A sliding window makes C = W (the ring)
+    whatever ``capacity``; a hybrid cache adds the zero SSM state
+    ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]."""
     _check_family(cfg)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.block == "rwkv":
@@ -452,15 +521,26 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
         cache = {key: t.reshape((cfg.num_layers, batch) + t.shape[1:])
                  for key, t in state.items()}
         return {**cache, "pos": pos}
-    shape = (cfg.num_layers, batch, capacity, cfg.padded_kv_heads, cfg.dh)
-    return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-            "pos": pos}
+    C = cfg.sliding_window or capacity
+    shape = (cfg.num_layers, batch, C, cfg.padded_kv_heads, cfg.dh)
+    cache = {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    if cfg.block == "hybrid":
+        state = ssm.init_ssm_state(cfg, cfg.num_layers * batch,
+                                   device=device)
+        cache.update({key: t.reshape((cfg.num_layers, batch) + t.shape[1:])
+                      for key, t in (("ssm_h", state["h"]),
+                                     ("conv", state["conv"]))})
+    return {**cache, "pos": pos}
 
 
 def _cache_keys(cfg: ModelConfig):
     """The per-layer entries of a dense cache (all but ``pos``)."""
-    return ("s", "tm_x", "cm_x") if cfg.block == "rwkv" else ("k", "v")
+    if cfg.block == "rwkv":
+        return ("s", "tm_x", "cm_x")
+    if cfg.block == "hybrid":
+        return ("k", "v", "ssm_h", "conv")
+    return ("k", "v")
 
 
 def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
@@ -472,6 +552,12 @@ def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
     xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
     attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
                               impl=impl)
+    if cfg.block == "hybrid":
+        ssm_out, state = ssm.ssm_step(
+            p["ssm"], xn, {"h": entry["ssm_h"], "conv": entry["conv"]}, cfg)
+        entry["ssm_h"].copy_(state["h"])
+        entry["conv"].copy_(state["conv"])
+        attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
     return _ffn(p, x1 + attn_out, cfg)
 
 
@@ -479,9 +565,10 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
                 impl: str = "kernel"):
     """Batched decode step on the dense layout. tokens: [B]. Returns
     (logits [B,Vp] fp32, cache) with ``pos + 1`` for every slot, as the
-    reference (inactive slots advance too; their writes clamp at C-1 and
-    nothing live reads them; an RWKV step advances their state, which
-    ``insert`` overwrites whole). K/V or the state are updated in place."""
+    reference (inactive slots advance too; their writes clamp at C-1, or
+    wrap in a ring, and nothing live reads them; an RWKV or SSM step
+    advances their state, which ``insert`` overwrites whole). K/V and the
+    state are updated in place."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     pos = cache["pos"]
@@ -533,7 +620,8 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
 
 def supports_paged(cfg: ModelConfig) -> bool:
     """Paged serving covers the dense-attention family without quantized
-    KV or a sliding window."""
+    KV or a sliding window (a ring and a recurrent state have no KV growth
+    to page)."""
     return (cfg.block == "attn" and not cfg.kv_quant
             and not cfg.sliding_window)
 

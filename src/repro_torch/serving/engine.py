@@ -19,23 +19,29 @@ surface, as in ``repro.serving.engine``:
   ``evict`` is an O(1) refcount decrement per block, decode attends over a
   pow2-bucketed window that tracks the active context, and the prefix
   cache shares blocks between entries by refcount, never by copy.
-- **dense** (``paged=False``, and always for RWKV-6): one ``[slots,
-  capacity]``-wide cache with per-slot positions; for RWKV-6 the
-  per-slot recurrent state ``s``/``tm_x``/``cm_x``, which is what the
-  disaggregated handoff carries (O(1) per request, whatever the prompt).
+- **dense** (``paged=False``, and always for RWKV-6 and the hybrid
+  family): one ``[slots, capacity]``-wide cache with per-slot positions;
+  for RWKV-6 the per-slot recurrent state ``s``/``tm_x``/``cm_x``, which
+  is what the disaggregated handoff carries (O(1) per request, whatever
+  the prompt); for a hybrid model with a sliding window W (hymba-1.5b)
+  a W-row KV ring, whatever the capacity, and the SSM state
+  ``ssm_h``/``conv`` (O(W) per request, whatever the prompt).
 
 ``prefill_chunked`` runs the prompt in chunks (the co-located piggyback
 path) and, for an attention-family engine built with ``chunk_size``,
-consults and fills a ``PrefixCache``; RWKV-6 prompts are never chunked
-(``transformer.prefill_chunked`` refuses them, as the reference asserts).
+consults and fills a ``PrefixCache``; RWKV-6 and hybrid prompts are never
+chunked (``transformer.prefill_chunked`` refuses them, as the reference
+asserts).
 As in the reference, a prompt is padded with token 0 to whole chunks, and
 the padded prompt is what the model sees: the first token is read at its
 last position, and decoding continues after the pad.
 
 On a CUDA device every prefill (whole or chunked) runs the hand-written
 flash-attention kernel, every paged decode step the paged decode kernel
-and every dense decode step the dense decode kernel (``impl="kernel"``);
-an RWKV-6 prefill and decode step run the WKV kernel in every layer;
+and every dense decode step the dense decode kernel (``impl="kernel"``),
+a hybrid model's banded prefill the flash kernel with its window and its
+decode step the dense decode kernel over the ring; an RWKV-6 prefill and
+decode step run the WKV kernel in every layer;
 on the CPU the same calls run their plain PyTorch versions. The kernels
 are built when the engine is made, never inside a timed step.
 
@@ -199,7 +205,8 @@ class Engine:
         to step would pay those costs (the reference's engines each compile
         their own jit, and so each pay their own). Every slot is inactive:
         paged writes land in the trash block, dense writes in rows (or, for
-        RWKV, the whole state of every slot) that ``insert`` overwrites, and
+        RWKV or a hybrid model's SSM, the whole state of every slot) that
+        ``insert`` overwrites, and
         the dense positions are reset."""
         toks = self._step_tokens({})
         if self.paged:
@@ -301,7 +308,9 @@ class Engine:
     @torch.inference_mode()
     def prefill(self, prompt: np.ndarray) -> Tuple[int, Any]:
         """Full prefill of one prompt; returns (first_token, payload): a
-        ``PagedCache`` (paged) or a capacity-wide B=1 dict cache (dense)."""
+        ``PagedCache`` (paged) or a B=1 dict cache (dense: capacity-wide
+        K/V for the attention family, a W-row ring and the SSM state for a
+        windowed hybrid, the state for RWKV)."""
         self._check()
         t0 = time.perf_counter()
         tokens = self._tokens(prompt)
@@ -435,8 +444,8 @@ class Engine:
     def insert(self, req, payload) -> int:
         """KV handoff: place a prefilled request into a free slot. Paged
         engines scatter only the request's blocks (O(request), not
-        O(capacity)); dense engines copy a capacity-wide row (RWKV: the
-        slot's whole state)."""
+        O(capacity)); dense engines copy a cache-wide row (RWKV: the
+        slot's whole state; hybrid: the ring and the SSM state)."""
         self._check()
         if self.paged and not isinstance(payload, PagedCache):
             raise TypeError("paged engine got a dense handoff payload; "
@@ -470,16 +479,17 @@ class Engine:
 
     def _insert_dense(self, slot: int, src) -> None:
         """Copy a B=1 cache into decode slot ``slot``, in place: K/V rows
-        zero-padded or cut to this engine's capacity, every other entry
-        (an RWKV state) as a whole row, as the reference's ``_insert_impl``."""
-        C = self.capacity
+        zero-padded or cut to the width of this engine's own cache (its
+        capacity, or a sliding window's ring of W rows), every other entry
+        (an RWKV or SSM state) as a whole row, as the reference's
+        ``_insert_impl``."""
         for kk, dst_all in self.cache.items():
             if kk == "pos":
                 continue
             dst = dst_all[:, slot]
             row = src[kk][:, 0]
             if kk in ("k", "v"):
-                row = row[:, :C]
+                row = row[:, :dst.shape[1]]
                 dst[:, row.shape[1]:] = 0
                 dst = dst[:, :row.shape[1]]
             dst.copy_(row)

@@ -721,3 +721,116 @@ def test_dense_kernel_at_dh64_group_sizes(cuda, G):
     torch.cuda.synchronize()
     ref = decode_attention_ref(q, k, v, lens)
     assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+# hymba-1.5b's 25 query / 5 KV heads of 64 (G = 5: 12 positions fill 60 of
+# a flash tile's 64 rows) and its sliding window of 1024 over a 1024-row
+# ring
+
+HYMBA = (25, 5)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,off,window", [
+    (1, 512, 512, 0, 0),                # the serve's prefill: no window
+    (1, 512, 512, 0, 1024),             # the serve's call: launched causal
+    (1, 512, 512, 0, 511),              # the widest window that bands
+    (2, 333, 410, 77, 409),             # the same at an offset, B = 2
+    (1, 1100, 1100, 0, 1024),           # phase 21's prompt crosses it
+    (1, 2048, 2048, 0, 1024),
+    (2, 1500, 1577, 77, 1024),          # ragged, B = 2, at an offset
+    (1, 300, 300, 0, 100),              # the band inside one K/V tile
+    (2, 97, 260, 163, 37),              # window < tile, off no multiple
+    (1, 64, 576, 512, 64),
+    (1, 1, 449, 448, 5),                # one row, a few keys
+    (1, 700, 700, 0, 1),                # each row sees itself only
+])
+def test_flash_kernel_window_at_hymba_heads(cuda, B, Sq, Skv, off, window):
+    """Flash at hymba's heads, with and without the window: the loop's
+    first tile and the stage slots and parities re-based to it, the rows
+    of a tile masked each at its own lower bound, against the plain
+    version."""
+    H, Hkv = HYMBA
+    rng = np.random.default_rng(101 + Sq + window)
+    q = _bf16(rng, (B, Sq, H, 64), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, 64), cuda)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, q_offset=off, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=off,
+                              window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("G,dh", [(1, 128), (5, 64), (8, 128), (16, 64)])
+def test_flash_kernel_wide_window_is_bit_identical(cuda, G, dh):
+    """A window of at least Sq + q_offset keys masks nothing, and the
+    wrapper launches the unbanded build for it: the output is bit for bit
+    the unwindowed one, with q_offset, B = 2, at both head dims; a
+    narrower window changes it."""
+    rng = np.random.default_rng(103 + G)
+    B, Sq, Skv, Hkv, off = 2, 333, 410, 2, 77
+    q = _bf16(rng, (B, Sq, G * Hkv, dh), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, dh), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, dh), cuda)
+    full = flash_attention(q, k, v, causal=True, q_offset=off)
+    for window in (Sq + off, Sq + off + 1, 4096):
+        assert torch.equal(flash_attention(q, k, v, causal=True,
+                                           q_offset=off, window=window),
+                           full), window
+    narrow = flash_attention(q, k, v, causal=True, q_offset=off, window=200)
+    torch.cuda.synchronize()
+    assert not torch.equal(narrow, full)
+
+
+def test_flash_kernel_window_never_reads_the_next_sequence(cuda):
+    """Windowed, B = 2, Skv no multiple of the tile: sequence 1's K/V are
+    NaN and sequence 0's output stays finite and right."""
+    H, Hkv = HYMBA
+    rng = np.random.default_rng(107)
+    q = _bf16(rng, (2, 300, H, 64), cuda)
+    k = _bf16(rng, (2, 300, Hkv, 64), cuda)
+    v = _bf16(rng, (2, 300, Hkv, 64), cuda)
+    k[1], v[1] = float("nan"), float("nan")
+    out = flash_attention(q, k, v, causal=True, window=70)
+    torch.cuda.synchronize()
+    ref = flash_attention_ref(q[:1], k[:1], v[:1], causal=True, window=70)
+    assert torch.isfinite(out[0]).all()
+    assert (out[:1].float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_flash_kernel_refuses_a_window_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 64), device=cuda, dtype=torch.bfloat16)
+    for kw in ({"causal": False, "window": 16}, {"window": -1}):
+        with pytest.raises(ValueError, match="window"):
+            flash_attention(q, q[:, :, :2], q[:, :, :2], **kw)
+
+
+@pytest.mark.parametrize("B", [8, 3, 16])
+def test_dense_kernel_over_hymba_ring(cuda, B):
+    """Dense decode at hymba's heads over the full 1024-row ring, lengths
+    min(pos + 1, 1024) from a first token to a wrapped ring (the order of
+    the ring's slots does not matter to the softmax), against the plain
+    version; rows at or past a length poisoned leave the output
+    bit-unchanged."""
+    H, Hkv = HYMBA
+    C = 1024
+    rng = np.random.default_rng(109 + B)
+    lengths = tuple(([1, 37, 544, C, C, 1023, 512, 2] * 2)[:B])
+    q, k, v, lens = _dense_case(rng, B, C, H, Hkv, lengths, cuda, dh=64)
+    n0 = decode_attention.launches
+    out = decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    ref = decode_attention_ref(q, k, v, lens)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    k2, v2 = k.clone(), v.clone()
+    for b, n in enumerate(lengths):
+        k2[b, n:], v2[b, n:] = 1e4, -1e4
+    out2 = decode_attention(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)

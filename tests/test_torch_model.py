@@ -421,14 +421,18 @@ def test_bf16_logits_are_float32():
     # the MoE slice has landed: an MoE config is accepted
     pytest.param({"moe": MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)},
                  None, id="change2-MoE slice"),
-    ({"block": "hybrid"}, "hybrid slice"),
+    # the hybrid slice has landed: a windowless hybrid block is accepted
+    pytest.param({"block": "hybrid"}, None, id="change3-hybrid slice"),
 ])
 def test_unported_configs_name_their_slice(change, slice_name):
     cfg = get_smoke_config("qwen2.5-3b").replace(**change)
     if slice_name is None:
         assert T.unported(cfg) is None
-        assert T.init_cache(cfg, 1, 8, device="cpu")["k"].shape[2] == 8
-        assert "moe" in T.init_params(cfg, 0, device="cpu")["blocks"][0]
+        cache = T.init_cache(cfg, 1, 8, device="cpu")
+        assert cache["k"].shape[2] == 8
+        leaf = "moe" if "moe" in change else "ssm"
+        assert leaf in T.init_params(cfg, 0, device="cpu")["blocks"][0]
+        assert ("ssm_h" in cache) == (leaf == "ssm")
         return
     assert slice_name in T.unported(cfg)
     with pytest.raises(NotImplementedError, match=slice_name):
