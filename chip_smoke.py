@@ -142,7 +142,37 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      carried the ring and the SSM state, 45,527,040 bytes;
  23. hymba profile: phase 11 for hymba's engine, with the SSM branch's
      device time, share and launches per step (``ssm`` spans around
-     ``ssm_apply`` and ``ssm_step``).
+     ``ssm_apply`` and ``ssm_step``);
+ 24. musicgen model: full-width, full-depth musicgen-large (48 layers,
+     32/32 heads of 64: G = 1, vocabulary 2048), bf16, random weights
+     from seed 0, checked as phase 4 (a prefill of 512 and 4 paged decode
+     steps, three ways, the same rule), every flash and paged decode call
+     held against its plain version on the same inputs; peak memory;
+ 25. musicgen serve: ``serve.main --arch musicgen-large`` with phase 5's
+     traffic; fails unless all 16 complete, flash ran exactly 48 times
+     per prefill and paged decode exactly 48 times per decode step and
+     per engine's warm-up step, neither dense decode nor WKV ran, and
+     each handoff carried 201,326,592 bytes;
+ 26. kv-quant model: full-width qwen2.5-3b with ``kv_quant=True`` (an int8
+     dense cache with a bf16 scale per token and KV head), a prefill of 4
+     prompts of 512 and 4 dense decode steps, kernel and plain kv-quant
+     bf16 against the unquantized float32 model by phase 4's rule; layer
+     0's int8 K/V and scales bit-identical between the two bf16 paths;
+     every flash and dense decode call held against its plain version;
+ 27. kv-quant serve: phase 8's dense serve on the kv-quant configuration;
+     fails unless all 4 complete, dense decode ran exactly once per layer
+     per decode step and warm-up step, flash once per layer per prefill,
+     paged decode never, and each handoff is exactly 130/256 of phase 8's;
+     then phase 11's profile of a kv-quant dense engine, with the
+     dequantization's device time per step;
+ 28. speculative: qwen2.5-3b as target, its first 4 blocks as the draft,
+     a 512-token prompt, 64 tokens, k = 4: on the plain float32 path the
+     tokens (of that draft, and of a self-draft, which must accept every
+     proposal) equal the target's greedy decode; on the kernel bf16 path,
+     counted, flash ran exactly 36 x target calls + 4 x draft prefills
+     and dense decode 4 x draft steps, and the first token that differs
+     from the bf16 greedy decode, if any, is a near-tie there; prints
+     acceptance, target calls and tokens/s beside the greedy decode's.
 
 Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
 16/8 heads) against their plain versions at the serve's shapes and their
@@ -152,11 +182,17 @@ its window of 1024 (S = 512 as the serve calls it, which the wrapper
 launches unbanded, and with the widest window that bands; 1100, 2048, a
 ragged B = 2 case at an offset; a window of at least Sq + q_offset
 bit-identical to none; SDPA given the band as an explicit mask) and for
-dense decode over the 1024-row ring (lengths 1 to 1024, poisoned rows).
+dense decode over the 1024-row ring (lengths 1 to 1024, poisoned rows);
+phase 3h does so for flash and paged decode at musicgen-large's 32/32
+heads of 64 (G = 1) and for flash at the verify pass's shape (4 query
+rows after 512 cached ones). Phase 18 also relaunches layer 0's MoE FFN
+20 times (bit-equal outputs, or it fails), beside the reference's
+scatter-add combine (``index_add_``) relaunched as often, and fails
+unless each bf16 path run twice gives bit-equal logits.
 
-Every path (5-8, 10, 12-14, 16, 19, 22) runs with every kernel's launch
-count set to 0 just before it and read just after; each phase prints its
-seconds.
+Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28) runs with every
+kernel's launch count set to 0 just before it and read just after; each
+phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -210,6 +246,15 @@ HEADS_GRANITE = (16, 8)
 HYMBA = "hymba-1.5b"
 HEADS_HYMBA = (25, 5)
 HYMBA_WINDOW = 1024
+# musicgen-large's (query, KV) heads of dh 64: multi-head attention, G = 1,
+# the attention kernels' emptiest packing
+MUSICGEN = "musicgen-large"
+HEADS_MUSICGEN = (32, 32)
+# speculative decoding's draft depth (the target's first blocks) and
+# proposals per verify pass; a bf16 near-tie, relative to max(1, scale)
+DRAFT_LAYERS = 4
+SPEC_K = 4
+NEAR_TIE = 2e-2
 # phase 17's design grid, its content address and the perf-model points it
 # evaluates (both deterministic: the JAX package's sweep gives the same)
 SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
@@ -617,6 +662,53 @@ def hymba_kernels(torch, dev, gen, fl_ops, dec_ops, flash_ref,
     if not math.isfinite(err) or err > KERNEL_ATOL or not same:
         fail(f"dense decode over hymba's ring disagrees ({err}) or leaks")
     errs["dense"] = err
+    return errs
+
+
+def attention_at_heads(torch, dev, gen, fl_ops, dec_ops, flash_ref, heads,
+                       dh, flash_shapes, paged_cases, what) -> dict:
+    """Flash at ``flash_shapes`` ((B, Sq, Skv, q_offset) each) and paged
+    decode at ``paged_cases`` ((lengths, table width or None) each), for
+    ``heads`` (query, KV) of ``dh``, against their plain versions; the
+    paged kernel also with the trash block and every tail past a length
+    poisoned, which must leave its output bit-unchanged. Phase 3e
+    (granite's heads) and 3h (musicgen's). Returns the largest error of
+    each kernel."""
+    H, Hkv = heads
+    errs = {"flash": 0.0, "paged": 0.0}
+    for (B, Sq, Skv, off) in flash_shapes:
+        q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, dh)
+        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        err = (out.float() - flash_ref(q, k, v, causal=True, q_offset=off)
+               .float()).abs().max().item()
+        log(f"# flash {what} H={H} Hkv={Hkv} B={B} Sq={Sq} Skv={Skv} "
+            f"off={off}: max_abs_err {err:.3e}")
+        if not math.isfinite(err) or err > KERNEL_ATOL:
+            fail(f"flash at {what} disagrees: {err}")
+        errs["flash"] = max(errs["flash"], err)
+    for lens_g, nb in paged_cases:
+        q, pk, pv, tbl, lens = paged_case(torch, gen, lens_g, 8, H, Hkv, dev,
+                                          nb, dh)
+        out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
+        torch.cuda.synchronize()
+        err = (out.float() - dec_ops.decode_attention_paged_plain(
+            q, pk, pv, tbl, lens).float()).abs().max().item()
+        pk2, pv2 = pk.clone(), pv.clone()
+        pk2[0], pv2[0] = 1e4, -1e4
+        for b, n in enumerate(lens_g):
+            if n % 8:
+                last = int(tbl[b, (n - 1) // 8])
+                pk2[last, n % 8:], pv2[last, n % 8:] = 77.0, -77.0
+        same = torch.equal(out, dec_ops.decode_attention_paged(
+            q, pk2, pv2, tbl, lens))
+        log(f"# paged {what} H={H} Hkv={Hkv} lengths={lens_g} nb="
+            f"{tbl.shape[1]}: max_abs_err {err:.3e}, poisoned blocks "
+            f"{'bit-unchanged' if same else 'LEAKED'}")
+        if not math.isfinite(err) or err > KERNEL_ATOL or not same:
+            fail(f"paged decode at {what} disagrees ({err}) or leaks "
+                 f"({same})")
+        errs["paged"] = max(errs["paged"], err)
     return errs
 
 
@@ -1072,23 +1164,26 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     the kernels inside it, the device's idle share and the kernels that
     take the most time. For an MoE model the profiled steps run every
     ``moe_ffn`` call under a ``record_function`` span, for a hybrid model
-    every ``ssm_apply`` / ``ssm_step`` call under an ``ssm`` span, and the
-    kernels launched inside those spans give the MoE FFN's (the SSM
-    branch's) device time, its share of the step's and its launches per
-    step. Reports "not measured" rather than failing if the profiler sees
-    no device activity."""
+    every ``ssm_apply`` / ``ssm_step`` call under an ``ssm`` span, for a
+    kv-quant model every ``_kv_dequant`` call under a ``kv_dequant`` span,
+    and the kernels launched inside those spans give the MoE FFN's (the SSM
+    branch's, the dequantization's) device time, its share of the step's
+    and its launches per step. Reports "not measured" rather than failing
+    if the profiler sees no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.core.hardware import get_chip
     from repro_torch.models import moe, ssm
+    from repro_torch.models import transformer as T
     from repro_torch.serving.backends import init_torch_params, make_engine
     params = init_torch_params(cfg, 0, device=dev)
     layout = {} if paged is None else {"paged": paged}
     eng = make_engine("torch", 0, cfg, params, slots=slots,
                       capacity=S + 64 + 8, chip=get_chip("h100"), device=dev,
                       **layout)
-    name = cfg.name + (" dense" if paged is False else "")
+    name = cfg.name + (" kv-quant" if cfg.kv_quant else "") + (
+        " dense" if paged is False else "")
     gen = torch.Generator().manual_seed(1)
     prompts = [torch.randint(0, cfg.vocab_size, (S,), generator=gen).numpy()
                for _ in range(slots + 4)]
@@ -1099,7 +1194,8 @@ def profile_phase(torch, cfg, dev, S: int = 512, slots: int = 8,
     # the spans: name -> the module functions run under it
     spans = ({"moe_ffn": (moe, ("moe_ffn",))} if cfg.moe is not None else
              {"ssm": (ssm, ("ssm_apply", "ssm_step"))}
-             if cfg.block == "hybrid" else {})
+             if cfg.block == "hybrid" else
+             {"kv_dequant": (T, ("_kv_dequant",))} if cfg.kv_quant else {})
 
     def report(kind, prof, n, wall_s):
         # the device side's kernels, without the GPU-side copies of the
@@ -1524,7 +1620,7 @@ def routing_witness(torch, cfg, params, dev, prompts, tap, attn) -> None:
             p, c, pools[0], tables, pos,
             torch.full((pos.shape[0],), tok, device=dev), impl=impl)
         tap.pin(None)
-        return d[:, :V].float(), tap.take()[0], tok
+        return d[:, :V].float(), tap.take()[0], tok, lg[:, :V]
 
     def err(a, ref):
         return ((a - ref).abs().max() / ref.abs().max()).item()
@@ -1535,15 +1631,18 @@ def routing_witness(torch, cfg, params, dev, prompts, tap, attn) -> None:
     broken = []
     with torch.inference_mode():
         for name, prompt in prompts:
-            dr, mr, tok = run(p32, c32, "plain", prompt)
-            dk, mk, _ = run(params, cfg, "kernel", prompt, tok)
-            dp, mp, _ = run(params, cfg, "plain", prompt, tok)
+            dr, mr, tok, _ = run(p32, c32, "plain", prompt)
+            dk, mk, _, lk = run(params, cfg, "kernel", prompt, tok)
+            dp, mp, _, lp = run(params, cfg, "plain", prompt, tok)
             free = err(dk, dr), err(dp, dr)
-            # each bf16 path once more, as it stands: is it reproducible?
+            # each bf16 path once more, as it stands: it must reproduce its
+            # prefill and decode logits bit for bit
             again = [run(params, cfg, impl, prompt, tok)
                      for impl in ("kernel", "plain")]
-            dk2, mk2, _ = run(params, cfg, "kernel", prompt, tok, mr)
-            dp2, mp2, _ = run(params, cfg, "plain", prompt, tok, mr)
+            same = [torch.equal(d, a[0]) and torch.equal(lg, a[3])
+                    for d, lg, a in ((dk, lk, again[0]), (dp, lp, again[1]))]
+            dk2, mk2, _, _ = run(params, cfg, "kernel", prompt, tok, mr)
+            dp2, mp2, _, _ = run(params, cfg, "plain", prompt, tok, mr)
             pinned = err(dk2, dr), err(dp2, dr)
             if not all(torch.equal(a, b) for m in (mk2, mp2)
                        for a, b in zip(m, mr)):
@@ -1565,17 +1664,52 @@ def routing_witness(torch, cfg, params, dev, prompts, tap, attn) -> None:
                 f"{flips(mk[pre], mp[pre])}, {flips(mk[pre], mr[pre])}, "
                 f"{flips(mp[pre], mr[pre])}; run again, the same logits "
                 f"and top-k sets that differ (prefill + step 0): kernel "
-                f"{torch.equal(dk, again[0][0])} {flips(mk, again[0][1])}, "
-                f"plain bf16 {torch.equal(dp, again[1][0])} "
+                f"{same[0]} {flips(mk, again[0][1])}, plain bf16 {same[1]} "
                 f"{flips(mp, again[1][1])}")
             attn.check(f"witness {cfg.name} {name}")
+            if not all(same):
+                fail(f"{cfg.name} witness {name}: a bf16 path run twice gave "
+                     f"other logits (kernel, plain bit-equal: {same})")
             if not pinned[0] <= 2 * pinned[1] + 1e-3:
                 fail(f"{cfg.name} witness {name}: with routing pinned the "
                      f"kernel path's error {pinned[0]} vs plain bf16 "
                      f"{pinned[1]}")
     log(f"# witness {cfg.name}: {len(prompts)} prompts, the rule broken "
-        f"free on {broken or 'none'}, held on every one pinned")
+        f"free on {broken or 'none'}, held on every one pinned, each bf16 "
+        "path bit-reproducible")
     del p32
+
+
+def combine_witness(torch, cfg, params, dev, runs: int = 20) -> None:
+    """Phase 18's yardstick for the MoE combine: layer 0's MoE FFN on 512
+    random bf16 tokens (a generator of its own), launched ``runs`` times,
+    must give the same output every time (the port sums each token's k
+    gated outputs in a fixed order, no atomics); the reference's
+    scatter-add combine, ``index_add_`` of fp32 rows at the same routing's
+    token indices (8 rows a token), is launched as often, and the launches
+    whose sums differ from the first are counted (atomics on the card)."""
+    from repro_torch.models import moe
+    m, p, D = cfg.moe, params["blocks"][0]["moe"], cfg.d_model
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    x = torch.randn((512, D), generator=g, device=dev).to(cfg.tdtype)
+    with torch.inference_mode():
+        ys = [moe._local_moe(x, p["router"], p["wg"], p["wu"], p["wd"],
+                             cfg=m)[0] for _ in range(runs)]
+        _, mask, _, _ = moe._route(x, p["router"], m)
+        tok = mask.nonzero(as_tuple=True)[0]
+        src = torch.randn((tok.numel(), D), generator=g, device=dev)
+        sums = [torch.zeros((512, D), device=dev).index_add_(0, tok, src)
+                for _ in range(runs)]
+    differ = sum(not torch.equal(ys[0], y) for y in ys[1:])
+    atomics = sum(not torch.equal(sums[0], t) for t in sums[1:])
+    log(f"# combine {cfg.name}: layer 0's MoE FFN relaunched {runs} times, "
+        f"{differ} outputs differ from the first; the reference's "
+        f"scatter-add (index_add_ of {tok.numel()} fp32 rows) {atomics} of "
+        f"{runs - 1}")
+    if differ:
+        fail(f"{cfg.name}: the MoE combine is not reproducible ({differ} of "
+             f"{runs - 1} relaunches differ)")
 
 
 def granite_model_phase(torch, dev, gen, get_config) -> None:
@@ -1601,6 +1735,7 @@ def granite_model_phase(torch, dev, gen, get_config) -> None:
         g.manual_seed(seed)
         prompts.append((f"seed {seed}", torch.randint(
             0, cfg.vocab_size, (1, 512), generator=g, device=dev)))
+    combine_witness(torch, cfg, params, dev)
     with RoutingTap() as tap, AttentionTap() as attn:
         routing_witness(torch, cfg, params, dev, prompts, tap, attn)
         model_phase(torch, cfg, dev, gen, tap=tap, prompt=prompt,
@@ -1616,44 +1751,45 @@ def granite_model_phase(torch, dev, gen, get_config) -> None:
     torch.cuda.empty_cache()
 
 
-def granite_serve(serve, drive, sla, get_config) -> dict:
-    """Phase 19: granite-moe-1b-a400m served with phase 5's traffic; every
+def paged_serve(serve, drive, sla, get_config, arch: str, path: str,
+                handoff: int) -> dict:
+    """Phases 19 and 25: ``arch`` served with phase 5's traffic; every
     prefill through flash and every decode step (and each of the 3
-    engines' warm-up steps) through paged decode, once per layer exactly,
-    at dh = 64; no other kernel; each handoff one 512-token prompt's
-    blocks, 24 x 64 blocks x 8 rows x 8 heads x 64 x 2 (K, V) x 2 bytes =
-    24 MiB."""
-    cfg = get_config(GRANITE)
+    engines' warm-up steps) through paged decode, once per layer exactly;
+    no other kernel; each handoff one 512-token prompt's blocks, exactly
+    ``handoff`` bytes (granite: 24 x 64 blocks x 8 rows x 8 heads x 64 x 2
+    (K, V) x 2 bytes = 24 MiB; musicgen: 512 x 48 x 2 x 32 x 64 x 2 =
+    192 MiB)."""
+    cfg = get_config(arch)
     Lr, engines, requests = cfg.num_layers, 3, 16
-    rec, n = drive("serve-granite", lambda: serve.main(
-        ["--arch", GRANITE] + SERVE_ARGS))
+    rec, n = drive(path, lambda: serve.main(["--arch", arch] + SERVE_ARGS))
     sla(rec)
     if rec["completed"] != requests:
-        fail(f"granite serve completed {rec['completed']} of {requests}")
+        fail(f"{arch} serve completed {rec['completed']} of {requests}")
     if n["flash"] != Lr * rec["prefills"] or rec["prefills"] < requests:
-        fail(f"granite serve: {n['flash']} flash launches for "
+        fail(f"{arch} serve: {n['flash']} flash launches for "
              f"{rec['prefills']} prefills of {Lr} layers")
     if n["paged"] != Lr * (rec["decode_steps"] + engines) \
             or rec["decode_steps"] < 1:
-        fail(f"granite serve: {n['paged']} paged launches for "
+        fail(f"{arch} serve: {n['paged']} paged launches for "
              f"{rec['decode_steps']} decode steps + {engines} warm-ups of "
              f"{Lr} layers")
     if n["dense"] or n["wkv"]:
-        fail(f"granite serve launched dense decode or WKV: {n}")
-    handoff = 512 * cfg.kv_bytes_per_token()
+        fail(f"{arch} serve launched dense decode or WKV: {n}")
     moved = rec["transferred_MB"] * 2**20
     # a request the elastic matcher leaves on its prefill engine (turned
     # decode) is inserted there and moves nothing
-    if handoff != 24 * 2**20 or abs(moved - rec["transfers"] * handoff) > 0.5 \
+    if 512 * cfg.kv_bytes_per_token() != handoff \
+            or abs(moved - rec["transfers"] * handoff) > 0.5 \
             or not (rec["transfers"] == requests
                     or (rec.get("rate_matcher_moves")
                         and rec["transfers"] < requests)):
-        fail(f"granite serve moved {moved} bytes in {rec['transfers']} "
+        fail(f"{arch} serve moved {moved} bytes in {rec['transfers']} "
              f"transfers; one handoff is {handoff} bytes")
-    log(f"# {GRANITE} serve: flash {n['flash']} = {Lr} x {rec['prefills']} "
-        f"prefills, paged {n['paged']} = {Lr} x ({rec['decode_steps']} "
-        f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
-        f"{handoff} bytes")
+    log(f"# {arch} serve (G = {cfg.q_group}, dh {cfg.dh}): flash "
+        f"{n['flash']} = {Lr} x {rec['prefills']} prefills, paged "
+        f"{n['paged']} = {Lr} x ({rec['decode_steps']} decode steps + "
+        f"{engines} warm-ups); {rec['transfers']} handoffs x {handoff} bytes")
     return rec
 
 
@@ -1699,6 +1835,252 @@ def hymba_serve(serve, drive, sla, get_config) -> dict:
         f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
         f"{handoff} bytes (ring K/V, ssm_h, conv) = {moved:.0f} bytes")
     return rec
+
+
+def musicgen_model_phase(torch, dev, gen, get_config) -> None:
+    """Phase 24: ``model_phase`` on musicgen-large at full width and depth
+    (48 layers, 32/32 heads of 64, vocabulary 2048), the float32 reference
+    upcast one block at a time, every flash and paged decode call held
+    against its plain version on the same inputs (``AttentionTap``)."""
+    cfg = get_config(MUSICGEN)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with AttentionTap() as attn:
+        params = model_phase(torch, cfg, dev, gen, attn=attn)
+    torch.cuda.synchronize()
+    log(f"# phase model {MUSICGEN} ({cfg.num_layers} layers, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.dh}, G = "
+        f"{cfg.q_group}, vocabulary {cfg.vocab_size}, "
+        f"{n_params(params) / 1e9:.4f} B parameters): "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+
+
+def kvquant_model_phase(torch, dev, gen, get_config, B: int = 4,
+                        S: int = 512, steps: int = 4) -> None:
+    """Phase 26: qwen2.5-3b with ``kv_quant=True`` at full width and depth
+    (the weights of phase 4, seed 0): a prefill of B prompts of S tokens
+    into an int8 cache and dense decode steps from each path's own cache,
+    three ways: kernel kv-quant bf16, plain kv-quant bf16 and, as the
+    reference, the unquantized model in float32 (upcast one block at a
+    time), held by ``hold``; every flash and dense decode call held
+    against its plain version on the same (dequantized) inputs. Layer 0
+    sees the same inputs on both bf16 paths, so its int8 K/V and scales
+    must be equal bit for bit between them after the prefill and after
+    the steps."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import init_torch_params
+    base = get_config("qwen2.5-3b")
+    cfg = base.replace(kv_quant=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_torch_params(base, 0, device=dev)
+    runs = [(params, cfg, "kernel"), (params, cfg, "plain"),
+            (upcast(params), base.replace(dtype="float32"), "plain")]
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    cap = S + steps + 8
+
+    def same_layer0(what, ck, cp):
+        same = all(torch.equal(ck[k][0], cp[k][0])
+                   for k in ("k", "v", "k_scale", "v_scale"))
+        log(f"# model {cfg.name} kv-quant {what}: layer 0's int8 K/V and "
+            f"scales bit-identical between the kernel and plain paths: "
+            f"{same}")
+        if not same:
+            fail(f"kv-quant {what}: layer 0's int8 cache differs between "
+                 "the kernel and plain paths")
+
+    with torch.inference_mode(), AttentionTap() as attn:
+        out = [T.prefill_full(p, c, {"tokens": prompt}, capacity=cap,
+                              impl=impl) for p, c, impl in runs]
+        hold(torch, f"{cfg.name} kv-quant prefill B={B} S={S}",
+             cfg.num_layers, *(lg for lg, _ in out), cfg.vocab_size)
+        attn.check(f"model {cfg.name} kv-quant prefill")
+        caches = [c for _, c in out]
+        if caches[0]["k"].dtype != torch.int8:
+            fail(f"kv-quant cache is {caches[0]['k'].dtype}, not int8")
+        same_layer0("prefill", caches[0], caches[1])
+        toks = out[2][0][:, :cfg.vocab_size].argmax(-1)
+        for step in range(steps):
+            logits = [T.decode_step(p, c, cache, toks, impl=impl)[0]
+                      for (p, c, impl), cache in zip(runs, caches)]
+            hold(torch, f"{cfg.name} kv-quant decode step {step}",
+                 cfg.num_layers, *logits, cfg.vocab_size)
+            attn.check(f"model {cfg.name} kv-quant decode step {step}")
+            toks = logits[2][:, :cfg.vocab_size].argmax(-1)
+        same_layer0(f"after {steps} decode steps", caches[0], caches[1])
+    nbytes = {name: sum(c[k].numel() * c[k].element_size()
+                        for k in T._cache_keys(c_cfg))
+              for name, c, c_cfg in (("int8", caches[0], cfg),
+                                     ("fp32", caches[2], runs[2][1]))}
+    torch.cuda.synchronize()
+    log(f"# phase model {cfg.name} kv-quant: cache bytes {nbytes}, "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params, runs, caches, out
+    torch.cuda.empty_cache()
+
+
+def kvquant_serve(torch, drive, sla, get_config, dev, dense_rec) -> None:
+    """Phase 27: phase 8's dense serve on the kv-quant configuration. Every
+    request completes; dense decode ran exactly once per layer per decode
+    step and per engine's warm-up step, flash once per layer per prefill,
+    paged decode never; each handoff is exactly 130/256 of phase 8's bf16
+    one: int8 values and a bf16 scale per token and KV head, (1 + 2/128)
+    / 2. Then phase 11's profile of a kv-quant dense engine, with the
+    dequantization's device time per step (``kv_dequant`` spans around
+    ``transformer._kv_dequant``)."""
+    cfg = get_config("qwen2.5-3b").replace(kv_quant=True)
+    Lr, engines = cfg.num_layers, 2
+    rec, n = drive("dense-kvquant", lambda: dense_serve(torch, cfg, dev,
+                                                        False, {}))
+    sla(rec)
+    if rec["completed"] != 4:
+        fail(f"kv-quant serve completed {rec['completed']} of 4")
+    if n["dense"] != Lr * (rec["decode_steps"] + engines) \
+            or n["flash"] != Lr * rec["prefills"] or n["paged"] or n["wkv"] \
+            or rec["decode_steps"] < 1:
+        fail(f"kv-quant serve: launches {n} for {rec['prefills']} prefills "
+             f"and {rec['decode_steps']} decode steps + {engines} warm-ups")
+    per = rec["transferred_MB"] * 2**20 / rec["transfers"]
+    bf16 = dense_rec["transferred_MB"] * 2**20 / dense_rec["transfers"]
+    if per * 256 != bf16 * 130 or rec["transfers"] != 4:
+        fail(f"kv-quant handoff {per} bytes, phase 8's {bf16}: not 130/256")
+    log(f"# kv-quant serve: dense {n['dense']} = {Lr} x ({rec['decode_steps']}"
+        f" decode steps + {engines} warm-ups), flash {n['flash']}; "
+        f"{rec['transfers']} handoffs x {per:.0f} bytes = 130/256 x phase "
+        f"8's {bf16:.0f}")
+    profile_phase(torch, cfg, dev, paged=False)
+
+
+def speculative_phase(torch, dev, drive, get_config, N: int = 64,
+                      S: int = 512) -> None:
+    """Phase 28: speculative decoding with qwen2.5-3b (the weights of phase
+    4) as the target and a draft of its first ``DRAFT_LAYERS`` blocks (the
+    same embed, final norm and head), a prompt of S tokens (a generator of
+    its own), N tokens, k = ``SPEC_K``.
+
+    - Plain float32: the tokens equal the target's own greedy decode
+      (``decode_step``) exactly, and so does a self-draft, which accepts
+      every proposal.
+    - Kernel bf16, counted: flash ran exactly once per target layer per
+      target call (the prefill and each verify pass: 4 query rows at
+      ``q_offset``) plus once per draft layer per draft prefill (the first
+      and each re-prefill after a rejection), dense decode once per draft
+      layer per draft step, nothing else. The prefix on which the tokens
+      agree with the target's bf16 greedy decode is printed; at the first
+      disagreement, if any, the speculative token's logit in the greedy
+      decode must lie within ``NEAR_TIE`` x max(1, logit scale) of the top
+      one (a bf16 near-tie: the verify pass and the decode step round
+      differently). The self-draft's acceptance is printed.
+    - Acceptance, target calls and tokens per second beside the target's
+      greedy decode on the same path."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.backends import init_torch_params
+    from repro_torch.serving.speculative import speculative_decode
+    cfg = get_config("qwen2.5-3b")
+    V, Lr = cfg.vocab_size, cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_torch_params(cfg, 0, device=dev)
+    g = torch.Generator().manual_seed(28)
+    prompt = torch.randint(0, V, (S,), generator=g).numpy()
+
+    def draft_of(p, c):
+        return (dict(p, blocks=p["blocks"][:DRAFT_LAYERS]),
+                c.replace(num_layers=DRAFT_LAYERS))
+
+    def greedy(p, c, impl):
+        """The target's greedy decode: its tokens, each step's logits and
+        tokens per second."""
+        t0 = time.perf_counter()
+        lg, cache = T.prefill_full(p, c, {"tokens": torch.as_tensor(
+            prompt, device=dev)[None]}, capacity=S + N + 8, impl=impl)
+        rows = [lg[0, :V]]
+        while len(rows) < N:
+            tok = rows[-1].argmax()[None]
+            lg, cache = T.decode_step(p, c, cache, tok, impl=impl)
+            rows.append(lg[0, :V])
+        toks = torch.stack(rows).argmax(-1).tolist()
+        return toks, rows, N / (time.perf_counter() - t0)
+
+    def spec(p, c, dp, dc, impl):
+        t0 = time.perf_counter()
+        toks, stats = speculative_decode(p, c, dp, dc, prompt, N, k=SPEC_K,
+                                         impl=impl)
+        torch.cuda.synchronize()
+        return toks, stats, N / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        p32 = {k: (v.float() if k != "blocks" else
+                   [upcast_tree(b) for b in v]) for k, v in params.items()}
+        c32 = cfg.replace(dtype="float32")
+        ref32, _, _ = greedy(p32, c32, "plain")
+        toks, stats, _ = spec(p32, c32, *draft_of(p32, c32), "plain")
+        self_toks, self_stats, _ = spec(p32, c32, p32, c32, "plain")
+    log(f"# speculative fp32 plain: {DRAFT_LAYERS}-layer draft {stats}, "
+        f"tokens equal the greedy decode: {toks == ref32}; self-draft "
+        f"{self_stats}, equal: {self_toks == ref32}")
+    if toks != ref32 or self_toks != ref32 \
+            or self_stats["accepted"] != self_stats["proposed"]:
+        fail("speculative decoding in float32 is not the target's greedy "
+             "decode, or the self-draft rejected a proposal")
+    del p32
+    torch.cuda.empty_cache()
+
+    with torch.inference_mode():
+        ref, rows, greedy_tps = greedy(params, cfg, "kernel")
+        prefills = []
+        orig = T.prefill_full
+
+        def counted(p, c, *args, **kw):
+            prefills.append(c.num_layers)
+            return orig(p, c, *args, **kw)
+
+        T.prefill_full = counted
+        try:
+            (toks, stats, tps), n = drive("speculative", lambda: spec(
+                params, cfg, *draft_of(params, cfg), "kernel"))
+        finally:
+            T.prefill_full = orig
+        self_toks, self_stats, self_tps = spec(params, cfg, params, cfg,
+                                               "kernel")
+    draft_prefills = prefills.count(DRAFT_LAYERS)
+    want = {"flash": Lr * stats["target_calls"]
+            + DRAFT_LAYERS * draft_prefills,
+            "dense": DRAFT_LAYERS * stats["draft_calls"], "paged": 0,
+            "wkv": 0}
+    agree = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                 N)
+    log(f"# speculative bf16 kernel: {DRAFT_LAYERS}-layer draft {stats}, "
+        f"acceptance {stats['accepted'] / stats['proposed']:.3f}, "
+        f"{draft_prefills - 1} draft re-prefills, launches {n} (want "
+        f"{want}); {tps:.2f} tokens/s against the greedy decode's "
+        f"{greedy_tps:.2f}; the first {agree} of {N} tokens agree with it; "
+        f"self-draft {self_stats}, acceptance "
+        f"{self_stats['accepted'] / self_stats['proposed']:.3f}, "
+        f"{self_tps:.2f} tokens/s; {time.perf_counter() - t0:.1f} s")
+    if n != want or prefills.count(Lr) != 1:
+        fail(f"speculative launches {n}, want {want}")
+    if agree < N:
+        lg = rows[agree]
+        gap = (lg.max() - lg[toks[agree]]).item()
+        tol = NEAR_TIE * max(1.0, lg.abs().max().item())
+        log(f"# speculative bf16: at token {agree} the greedy decode's top "
+            f"logit leads the speculative token's by {gap:.4e} (near-tie "
+            f"bound {tol:.4e})")
+        if not gap <= tol:
+            fail(f"speculative bf16 token {agree} is no near-tie of the "
+                 f"greedy decode's: {gap} > {tol}")
+    del params
 
 
 def sweep_phase(scratch) -> None:
@@ -1884,10 +2266,10 @@ def main() -> None:
     if g_err > 1e-6:
         fail(f"poisoned trash/tail blocks leaked into the output: {g_err}")
 
-    def time_paged(lengths, nb=None, H=16, Hkv=2, dh=128):
-        first = paged_case(torch, gen, lengths, 8, H, Hkv, dev, nb, dh)
+    def time_paged(lengths, nb=None, H=16, Hkv=2, dh=128, rng=gen):
+        first = paged_case(torch, rng, lengths, 8, H, Hkv, dev, nb, dh)
         nbytes = 2 * first[1].numel() * first[1].element_size()  # K, V
-        cases = [first] + [paged_case(torch, gen, lengths, 8, H, Hkv, dev,
+        cases = [first] + [paged_case(torch, rng, lengths, 8, H, Hkv, dev,
                                       nb, dh)
                            for _ in range(copies(nbytes) - 1)]
         tbl = first[3]
@@ -1952,29 +2334,30 @@ def main() -> None:
 
     # 3c) flash attention at chunked-prefill shapes: Sq < 64 and offsets
     #     that are no multiple of the 64-row tile, Skv = q_offset + Sq
-    t0 = time.perf_counter()
-    chunk_rows = []
-    for Sq, off in [(16, 48), (16, 448), (64, 48), (64, 448)]:
+    def time_chunk(Sq, off, H=16, Hkv=2, dh=128, rng=gen):
+        """Flash at Sq query rows after ``off`` cached ones (a prefill
+        chunk, a verify pass): held against its plain version, then timed
+        beside it, SDPA given the causal offset as a mask, and its bound."""
         Skv = off + Sq
-        q, k, v = flash_case(torch, gen, 1, Sq, Skv, 16, 2, dev)
+        q, k, v = flash_case(torch, rng, 1, Sq, Skv, H, Hkv, dev, dh)
         out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
         torch.cuda.synchronize()
         ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
         err = (out.float() - ref.float()).abs().max().item()
         if not math.isfinite(err) or err > KERNEL_ATOL:
-            fail(f"flash at chunk Sq={Sq} q_offset={off} disagrees: {err}")
-        fl_err = max(fl_err, err)
-        flops, nbytes = flash_work(1, Sq, Skv, 16, 2, off)
-        cases = [flash_case(torch, gen, 1, Sq, Skv, 16, 2, dev)
+            fail(f"flash at Sq={Sq} q_offset={off} H={H} Hkv={Hkv} dh={dh} "
+                 f"disagrees: {err}")
+        flops, nbytes = flash_work(1, Sq, Skv, H, Hkv, off, dh)
+        cases = [flash_case(torch, rng, 1, Sq, Skv, H, Hkv, dev, dh)
                  for _ in range(copies(nbytes))]
         mask = (torch.arange(Skv, device=dev)[None, :]
                 <= off + torch.arange(Sq, device=dev)[:, None])
         lib_cases = [tuple(x.transpose(1, 2) for x in c) for c in cases]
 
-        def kernel(q, k, v, off=off):
+        def kernel(q, k, v):
             return fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
 
-        def sdpa(q, k, v, mask=mask):
+        def sdpa(q, k, v):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   enable_gqa=True)
 
@@ -1986,8 +2369,13 @@ def main() -> None:
                "library_ms": timer(sdpa, lib_cases),
                "library_device_ms": timer.device(sdpa, lib_cases)}
         res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
-        log("# flash chunk time: " + json.dumps(res))
-        chunk_rows.append(res)
+        log(f"# flash chunk time H={H} Hkv={Hkv} dh={dh}: " + json.dumps(res))
+        return res
+
+    t0 = time.perf_counter()
+    chunk_rows = [time_chunk(Sq, off) for Sq, off in [(16, 48), (16, 448),
+                                                     (64, 48), (64, 448)]]
+    fl_err = max([fl_err] + [r["max_abs_err"] for r in chunk_rows])
     rows["flash"]["chunk_shapes"] = chunk_rows
 
     # 3d) dense decode (kernel 3): the dense engine's capacity 584 (no
@@ -2060,43 +2448,14 @@ def main() -> None:
     #     each with poisoned rows; then each timed at the serve's shape
     t0 = time.perf_counter()
     H, Hkv = HEADS_GRANITE
-    errs = {"flash": 0.0, "paged": 0.0, "dense": 0.0}
-    for (B, Sq, Skv, off) in [(1, 512, 512, 0), (1, 509, 509, 0),
-                              (2, 70, 300, 230), (2, 96, 96, 0),
-                              (1, 1, 449, 448), (1, 16, 464, 448),
-                              (1, 64, 112, 48), (1, 64, 576, 512)]:
-        q, k, v = flash_case(torch, gen, B, Sq, Skv, H, Hkv, dev, 64)
-        out = fl_ops.flash_attention(q, k, v, causal=True, q_offset=off)
-        torch.cuda.synchronize()
-        ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
-        err = (out.float() - ref.float()).abs().max().item()
-        log(f"# flash dh=64 H={H} Hkv={Hkv} B={B} Sq={Sq} Skv={Skv} "
-            f"off={off}: max_abs_err {err:.3e}")
-        if not math.isfinite(err) or err > KERNEL_ATOL:
-            fail(f"flash at dh 64 disagrees: {err}")
-        errs["flash"] = max(errs["flash"], err)
-    for lens_g, nb in [(lengths_mixed, None), ([1, 32, 33, 63, 97, 544, 584,
-                                                9], 73)]:
-        q, pk, pv, tbl, lens = paged_case(torch, gen, lens_g, 8, H, Hkv, dev,
-                                          nb, 64)
-        out = dec_ops.decode_attention_paged(q, pk, pv, tbl, lens)
-        torch.cuda.synchronize()
-        err = (out.float() - dec_ops.decode_attention_paged_plain(
-            q, pk, pv, tbl, lens).float()).abs().max().item()
-        pk2, pv2 = pk.clone(), pv.clone()
-        pk2[0], pv2[0] = 1e4, -1e4
-        for b, n in enumerate(lens_g):
-            if n % 8:
-                last = int(tbl[b, (n - 1) // 8])
-                pk2[last, n % 8:], pv2[last, n % 8:] = 77.0, -77.0
-        same = torch.equal(out, dec_ops.decode_attention_paged(
-            q, pk2, pv2, tbl, lens))
-        log(f"# paged dh=64 H={H} Hkv={Hkv} lengths={lens_g} nb="
-            f"{tbl.shape[1]}: max_abs_err {err:.3e}, poisoned blocks "
-            f"{'bit-unchanged' if same else 'LEAKED'}")
-        if not math.isfinite(err) or err > KERNEL_ATOL or not same:
-            fail(f"paged decode at dh 64 disagrees ({err}) or leaks ({same})")
-        errs["paged"] = max(errs["paged"], err)
+    errs = attention_at_heads(
+        torch, dev, gen, fl_ops, dec_ops, flash_attention_ref, HEADS_GRANITE,
+        64, [(1, 512, 512, 0), (1, 509, 509, 0), (2, 70, 300, 230),
+             (2, 96, 96, 0), (1, 1, 449, 448), (1, 16, 464, 448),
+             (1, 64, 112, 48), (1, 64, 576, 512)],
+        [(lengths_mixed, None), ([1, 32, 33, 63, 97, 544, 584, 9], 73)],
+        "dh 64")
+    errs["dense"] = 0.0
     for B, Smax in [(8, 584), (4, 100)]:
         T = dec_ops.split_tokens(B, Hkv, Smax)
         lens_g = [0, 1, T, T + 1, Smax, Smax + 5, 2 * T - 1, 77][:B]
@@ -2154,6 +2513,32 @@ def main() -> None:
     fl_err, dense_err = max(fl_err, errs["flash"]), max(dense_err,
                                                         errs["dense"])
     log(f"# phase kernels (hymba): {time.perf_counter() - t0:.1f} s")
+
+    # 3h) musicgen-large's heads (32/32 of 64, G = 1) for flash and paged
+    #     decode, and the speculative verify pass's shape (flash at 4 query
+    #     rows after 512 cached ones, qwen2.5-3b's heads); from a generator
+    #     of its own, as 3g
+    t0 = time.perf_counter()
+    gen_3h = torch.Generator(device=dev)
+    gen_3h.manual_seed(21)
+    errs = attention_at_heads(
+        torch, dev, gen_3h, fl_ops, dec_ops, flash_attention_ref,
+        HEADS_MUSICGEN, 64, [(1, 512, 512, 0), (1, 509, 509, 0),
+                             (2, 70, 300, 230), (1, 64, 576, 512),
+                             (1, 4, 516, 512)],
+        [(lengths_mixed, None), ([544] * 8, 73)], "musicgen's heads")
+    H, Hkv = HEADS_MUSICGEN
+    rows["flash"]["musicgen"] = {
+        "max_abs_err": errs["flash"],
+        **time_flash(512, H, Hkv, 64, rng=gen_3h)}
+    rows["paged"]["musicgen"] = {
+        "max_abs_err": errs["paged"],
+        **time_paged([544] * 8, nb=73, H=H, Hkv=Hkv, dh=64, rng=gen_3h)}
+    rows["flash"]["verify"] = time_chunk(SPEC_K, 512, rng=gen_3h)
+    fl_err = max(fl_err, errs["flash"], rows["flash"]["verify"]["max_abs_err"])
+    dec_err = max(dec_err, errs["paged"])
+    log(f"# phase kernels (musicgen, verify): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
@@ -2243,6 +2628,7 @@ def main() -> None:
     streams = {}
     rec, n = drive("dense", lambda: dense_serve(torch, cfg, dev, False,
                                                 streams))
+    dense_rec = rec
     sla(rec)
     if rec["completed"] != 4:
         fail(f"dense serve completed {rec['completed']} of 4")
@@ -2315,7 +2701,8 @@ def main() -> None:
 
     # 19) granite served disaggregated: phase 5's traffic, dh 64 kernels
     t0 = time.perf_counter()
-    granite_serve(serve, drive, sla, get_config)
+    paged_serve(serve, drive, sla, get_config, GRANITE, "serve-granite",
+                24 * 2**20)
     log(f"# phase granite serve: {time.perf_counter() - t0:.1f} s")
 
     # 20) granite profile: a decode step of 8 slots and a 512-token
@@ -2353,6 +2740,32 @@ def main() -> None:
     t0 = time.perf_counter()
     profile_phase(torch, hymba, dev)
     log(f"# phase hymba profile: {time.perf_counter() - t0:.1f} s")
+
+    # 24) musicgen-large: full width and depth (G = 1, dh 64), three ways
+    t0 = time.perf_counter()
+    musicgen_model_phase(torch, dev, gen, get_config)
+    log(f"# phase musicgen model: {time.perf_counter() - t0:.1f} s")
+
+    # 25) musicgen served disaggregated: phase 5's traffic, 192 MiB handoffs
+    t0 = time.perf_counter()
+    paged_serve(serve, drive, sla, get_config, MUSICGEN, "serve-musicgen",
+                201_326_592)
+    log(f"# phase musicgen serve: {time.perf_counter() - t0:.1f} s")
+
+    # 26) kv-quant: qwen2.5-3b's int8 cache, three ways
+    t0 = time.perf_counter()
+    kvquant_model_phase(torch, dev, gen, get_config)
+    log(f"# phase kv-quant model: {time.perf_counter() - t0:.1f} s")
+
+    # 27) kv-quant served: phase 8's dense serve, 130/256 of its handoff
+    t0 = time.perf_counter()
+    kvquant_serve(torch, drive, sla, get_config, dev, dense_rec)
+    log(f"# phase kv-quant serve: {time.perf_counter() - t0:.1f} s")
+
+    # 28) speculative decoding: a 4-layer draft of qwen2.5-3b, k = 4
+    t0 = time.perf_counter()
+    speculative_phase(torch, dev, drive, get_config)
+    log(f"# phase speculative: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

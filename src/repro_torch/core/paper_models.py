@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.core.paper_models``. It differs in one place:
 ``get_perf_model`` resolves an architecture id through the port's own
-registry (``repro_torch.configs``), which holds the architectures the port
-serves, so the other ids of the reference's registry are unknown here.
+registry (``repro_torch.configs``), which holds the reference's ten ids
+field for field, so every id the reference prices resolves here too.
 """
 from __future__ import annotations
 

@@ -22,11 +22,19 @@ decode piggybacked between chunks (``ChunkedPiggybackScheduler``) and the
 
 ``--arch rwkv6-1.6b`` (attention-free) and ``--arch hymba-1.5b`` (hybrid:
 sliding-window attention beside a selective SSM) serve disaggregated
-only: the prefill engine hands its O(1) recurrent state, or hymba's
-1024-row KV ring and SSM state, to a dense decode engine. Their prompts
-are never chunked, so ``--mode coloc`` and ``--scheduler prefix-affinity``
-(both chunked prefill) are refused at start-up, where the reference fails
-inside its chunked prefill.
+only on the torch backend: the prefill engine hands its O(1) recurrent
+state, or hymba's 1024-row KV ring and SSM state, to a dense decode
+engine. Their prompts are never chunked, so there ``--mode coloc`` and
+``--scheduler prefix-affinity`` (both chunked prefill) are refused at
+start-up, where the reference fails inside its chunked prefill; the sim
+backend serves both, as the reference's does.
+
+The torch backend also refuses, at start-up and before any parameter is
+allocated, ``llava-next-34b`` (its vision frontend comes with the
+frontends slice) and the full-size ``kimi-k2-1t-a32b`` and
+``mistral-large-123b``, whose bf16 weights exceed one card's memory
+(sharding comes with its own slice); their ``--smoke`` configurations
+serve, and ``--backend sim`` takes all ten ids at either size.
 
 The full configuration runs on the card (``--device`` defaults to
 ``cuda``); ``--smoke`` takes the smoke-sized configuration and
@@ -50,9 +58,10 @@ invariant sanitizer.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       --trace tests/data/traces/burst.jsonl --trace-out trace.json
 
-Where it differs from ``repro.launch.serve``: the engines' capacity also
-holds the pad that chunked prefill adds to a prompt (up to a chunk less
-one token), which the reference's capacity leaves out; the record names
+Where it differs from ``repro.launch.serve``: the torch engines' capacity
+also holds the pad that chunked prefill adds to a prompt (up to a chunk
+less one token), which the reference's capacity leaves out (sim engines
+take the reference's capacity, and so its handoff sizes); the record names
 the step counts and mean step times of torch engines, and leaves them
 out under ``--backend sim``, whose engines do not count them.
 """
@@ -61,7 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.core.hardware import CHIP_NAMES, get_chip
@@ -126,8 +135,9 @@ def build_workload(args, vocab: int):
 def main(argv=None) -> Dict[str, Any]:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2.5-3b",
-                    help="architecture; rwkv6-1.6b and hymba-1.5b serve "
-                    "disaggregated only (their prompts are never chunked)")
+                    help="architecture; on the torch backend rwkv6-1.6b "
+                    "and hymba-1.5b serve disaggregated only (their prompts "
+                    "are never chunked)")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's smoke-sized configuration")
     ap.add_argument("--device", default=None,
@@ -189,21 +199,23 @@ def main(argv=None) -> Dict[str, Any]:
                  "(engines must be built with a PrefixCache)")
 
     cfg = (get_smoke_config if args.smoke else get_config)(args.arch)
-    if cfg.block != "attn" and (args.mode == "coloc"
-                                or args.scheduler == "prefix-affinity"):
-        ap.error(f"--arch {args.arch}: {cfg.block} prompts are never "
-                 "chunked, so --mode coloc and --scheduler prefix-affinity "
-                 "(chunked prefill) do not apply; use --mode disagg")
     params = None
     if args.backend == "torch":         # sim serves without params
+        why = torch_refusal(cfg, args)
+        if why is not None:
+            ap.error(f"--arch {args.arch}: {why}")
         params = init_torch_params(cfg, args.seed, device=args.device)
     work, expected = build_workload(args, cfg.vocab_size)
     # one chunk value feeds both the engines' PrefixCache and the scheduler
     chunk = (args.piggyback_chunk
              if args.scheduler == "prefix-affinity" else 0)
     piggyback = args.mode == "coloc" and args.scheduler == "fcfs"
-    capacity = chunk_capacity(args, work, chunk or (
-        args.piggyback_chunk if piggyback else 0))
+    # room for a chunked prompt's pad: only the torch Engine refuses a
+    # padded prompt over its capacity (the SimEngine, as the reference's,
+    # does not)
+    pad_chunk = chunk or (args.piggyback_chunk if piggyback else 0)
+    capacity = chunk_capacity(args, work,
+                              pad_chunk if args.backend == "torch" else 0)
 
     # one calibration load per distinct chip; a chip with no persisted fit
     # runs on the raw roofline scale (announced, never silently borrowed
@@ -326,6 +338,30 @@ def main(argv=None) -> Dict[str, Any]:
     print(json.dumps(record, indent=1, default=str))
     assert metrics["completed"] == expected
     return record
+
+
+def torch_refusal(cfg, args) -> Optional[str]:
+    """Why ``--backend torch`` cannot serve ``cfg`` as asked, or None;
+    checked at start-up, before any parameter is allocated. The sim
+    backend takes every registered configuration, full size or smoke."""
+    from repro_torch.core.hardware import GPU_H100
+    from repro_torch.models.transformer import unported
+    why = unported(cfg)
+    if why is not None:
+        return why
+    weights = 2 * cfg.param_count()         # bf16
+    if weights > GPU_H100.hbm_cap:
+        return (f"{cfg.param_count() / 1e9:.1f} B parameters, "
+                f"{weights / 1e9:.0f} GB of bf16 weights, exceed one card's "
+                f"{GPU_H100.hbm_cap / 2**30:.0f} GiB; sharding them comes "
+                "with the sharding slice (--smoke serves the smoke "
+                "configuration, --backend sim the full one)")
+    if cfg.block != "attn" and (args.mode == "coloc"
+                                or args.scheduler == "prefix-affinity"):
+        return (f"{cfg.block} prompts are never chunked, so --mode coloc "
+                "and --scheduler prefix-affinity (chunked prefill) do not "
+                "apply; use --mode disagg (or --backend sim)")
+    return None
 
 
 def chunk_capacity(args, work, chunk: int) -> int:

@@ -5,21 +5,28 @@ gives each token its top-k experts; a cumsum over the flattened tokens
 gives each (token, expert) pair its slot in that expert's buffer of C
 slots (``expert_capacity``); pairs past C are dropped. A small ``[E, C]``
 slot -> token table (sentinel T: a zero row) moves the activations with
-one gather, the experts run as three batched products, and the gated
-outputs are scatter-added back in fp32.
+one gather, the experts run as three batched products, and each token's
+gated outputs are summed back in fp32.
 
 The reference computes all of this outside any Pallas kernel (XLA's
 gathers, einsums and scatter), so the port does too: ``index_select``,
-``torch.bmm`` and ``index_add_``. Its ``shard_map`` and ``expert_tp``
+``torch.bmm`` and a gather. Its ``shard_map`` and ``expert_tp``
 branches act only under a device mesh, which comes with the sharding
 slice; without one the reference runs ``_local_moe`` on every token, as
 here.
 
 No host synchronisation: C is computed in Python from the token count,
 and the metrics (``moe_aux_loss``, ``moe_z_loss``, ``moe_dropped``) stay
-tensors. On CUDA ``index_add_`` adds with atomics in no fixed order, so
-the fp32 combine of a token's k expert outputs may differ in its last
-bits from run to run (k = 8 terms: a few ulp of fp32).
+tensors. No atomics either, so a run is bit-reproducible on the card. The
+reference scatter-adds the gated outputs into their tokens' rows; its
+PyTorch twin, ``index_add_``, adds with atomics in no fixed order on
+CUDA, and was the one op of granite's bf16 paths whose relaunch differed.
+The combine here gathers each token's k gated outputs through a token ->
+slot table (a dropped pair points at a zero row) and sums them over the
+slot axis, in the reference's slot order (ascending expert). The slot ->
+token table is written with ``index_put_``; its duplicate indices all land
+in the drop column C, cut off before use, and all write the same
+sentinel.
 """
 from __future__ import annotations
 
@@ -107,11 +114,17 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg: MoEConfig,
     slot_gate = gates_pad[slot_tok.reshape(E, C),
                           torch.arange(E, device=dev)[:, None]]  # [E,C]
 
-    # scatter-add combine in fp32 (row T takes the empty slots' zeros)
-    y = torch.zeros((T + 1, D), dtype=f32, device=dev)
-    y.index_add_(0, slot_tok,
-                 (ye.to(f32) * slot_gate[..., None]).reshape(-1, D))
-    y = y[:T]
+    # combine in fp32 without atomics: token t's k routed experts in
+    # ascending order (a stable sort of its mask row puts them first), each
+    # pair's slot e*C + pos, or the zero row E*C where it was dropped; the
+    # gated outputs gathered [T, k, D] and summed over the slot axis
+    k = cfg.top_k
+    t_exp = torch.sort(mask, dim=1, descending=True, stable=True)[1][:, :k]
+    t_slot = torch.where(keep.gather(1, t_exp),
+                         t_exp * C + pos.gather(1, t_exp), E * C)
+    yg = (ye.to(f32) * slot_gate[..., None]).reshape(E * C, D)
+    yg = torch.cat([yg, yg.new_zeros((1, D))])
+    y = yg[t_slot].sum(dim=1)
     if not combine_fp32:
         y = y.to(x.dtype)
     aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,

@@ -46,8 +46,20 @@ fp32 and ``conv`` [B,K-1,di]. What a prefill hands over is that fixed-size
 ring and state, whatever the prompt's length. Like RWKV it has no paged
 layout and its prompts are never chunked.
 
-kv-quant, the frontends and a sliding window on the attn block come with
-later slices (``unported`` names which).
+kv-quant (``cfg.kv_quant``) stores the dense cache as int8 with a bf16
+scale per token and KV head (``k_scale``/``v_scale`` [L,B,C,Hkvp]), as
+the reference's ``_kv_quantize``: a prefill attends over the unquantized
+K/V and quantizes only its cache entry, a decode step quantizes its own
+row and attends over the dequantized cache (on the card: kernel 3 reads
+the dequantized copy, as the reference dequantizes, then attends). It has
+no paged layout and no chunked prefill, as in the reference.
+
+``verify_chunk`` scores k tokens at once against a dense cache (the
+speculative-decoding verify pass, ``serving/speculative.py``); on the card
+it is the flash kernel at ``q_offset``.
+
+The frontends and a sliding window on the attn block come with later
+slices (``unported`` names which).
 """
 from __future__ import annotations
 
@@ -76,20 +88,23 @@ def _check_impl(impl: str) -> None:
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
     or None for the families it covers: dense attention, MoE, RWKV-6 and
-    the hybrid family (with or without its sliding window)."""
+    the hybrid family (with or without its sliding window), with or
+    without kv-quant on the attn block."""
     if cfg.block not in ("attn", "rwkv", "hybrid"):
         return f"{cfg.block} blocks are no family of the reference"
     if cfg.frontend:
         return f"the {cfg.frontend} frontend comes with the frontends slice"
     if cfg.block == "rwkv":         # its own channel mix; no KV to quantize
         return None
-    if cfg.kv_quant:
-        return "kv-quant comes with the kv-quant / sliding-window slice"
+    if cfg.kv_quant and cfg.block != "attn":
+        # the reference's hybrid prefill keeps its ring unquantized while
+        # its cache and decode step quantize: no model of its own to port
+        return "kv-quant is defined on the attn block only"
     if cfg.sliding_window and cfg.block == "attn":
         # no configuration reaches the attn block's windowed chunked and
         # paged paths, in the reference either
-        return ("a sliding window on the attn block comes with the "
-                "kv-quant / sliding-window slice")
+        return ("a sliding window on the attn block comes with a later "
+                "slice")
     return None
 
 
@@ -100,14 +115,20 @@ def _check_family(cfg: ModelConfig) -> None:
 
 
 def _check_attn(cfg: ModelConfig, what: str) -> None:
-    """Chunked prefill and the paged layout are for the attention family,
-    as in the reference: an RWKV or hybrid prompt runs whole (its
-    recurrence is already chunked inside its scan), and a recurrent state
-    or a fixed-size ring has nothing to page."""
+    """Chunked prefill, the verify pass and the paged layout are for the
+    attention family with a bf16 cache, as in the reference: an RWKV or
+    hybrid prompt runs whole (its recurrence is already chunked inside its
+    scan), a recurrent state or a fixed-size ring has nothing to page, and
+    the int8 cache is written only by a whole prefill and a decode
+    step."""
     _check_family(cfg)
     if cfg.block != "attn":
         raise ValueError(f"{cfg.name}: {what} is for the attention family "
                          f"only, not {cfg.block} blocks")
+    if cfg.kv_quant:
+        raise ValueError(f"{cfg.name}: {what} keeps a bf16 KV cache; "
+                         "kv-quant runs on whole prefills and dense decode "
+                         "steps only")
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +256,24 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 # ---------------------------------------------------------------------------
+# KV-cache quantization (int8 values + per-token-per-head bf16 scales)
+
+
+def _kv_quantize(row):
+    """[..., dh] -> (int8 [..., dh], bf16 scale [...]), as the reference:
+    the values divided by the fp32 scale max(amax / 127, 1e-8), rounded
+    half to even and clipped to +-127; the scale then stored in bf16."""
+    r = row.float()
+    scale = torch.clamp(r.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(r / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def _kv_dequant(vals, scales, dtype):
+    return (vals.float() * scales.float()[..., None]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Attention block
 
 
@@ -335,7 +374,7 @@ def _decode_attend(q, kd, vd, valid, cfg: ModelConfig):
 
 
 def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
-                impl: str = "kernel"):
+                impl: str = "kernel", scales=None):
     """One decode token against the dense layout. x1: [B,1,D] (normed);
     caches [B,C,Hkvp,dh]; pos: [B] int32 per-slot positions. Writes this
     token's K/V (in place: the reference returns new caches) at
@@ -345,7 +384,10 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
     min(pos+1, C)``: on the ring every slot below that length holds one of
     the window's positions, and the softmax does not depend on the slots'
     order. ``"plain"`` is the shared ``_decode_attend`` core under the
-    reference's position mask."""
+    reference's position mask. Under kv-quant the caches are int8 and
+    ``scales`` holds ``k_scale``/``v_scale`` [B,C,Hkvp]: the row is
+    quantized into them (in place) and both paths attend over the whole
+    cache dequantized to x1's dtype, as the reference."""
     _check_impl(impl)
     B, C = x1.shape[0], k_cache.shape[1]
     W = cfg.sliding_window
@@ -356,13 +398,22 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
     pos_l = pos.long()
     bidx = torch.arange(B, device=x1.device)
     slot = pos_l % C if W else pos_l.clamp(max=C - 1)
-    k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
-    v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
+    if cfg.kv_quant:
+        for t, cache, key in ((k, k_cache, "k_scale"),
+                              (v, v_cache, "v_scale")):
+            vals, sc = _kv_quantize(t[:, 0])
+            cache.index_put_((bidx, slot), vals)
+            scales[key].index_put_((bidx, slot), sc)
+        kd = _kv_dequant(k_cache, scales["k_scale"], x1.dtype)
+        vd = _kv_dequant(v_cache, scales["v_scale"], x1.dtype)
+    else:
+        k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
+        v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
+        kd, vd = k_cache, v_cache
     if impl == "kernel":
         _kernel_ok(cfg)
         lengths = (pos_l + 1).clamp(max=C).to(torch.int32)
-        o = decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                             lengths)[:, None]
+        o = decode_attention(q[:, 0].contiguous(), kd, vd, lengths)[:, None]
     else:
         # each column's position: slot c of the ring holds the latest
         # position <= pos that is c modulo C
@@ -372,7 +423,7 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
         valid = (kpos <= pos_l[:, None]) & (kpos >= 0)
         if W:
             valid &= kpos > pos_l[:, None] - W
-        o = _decode_attend(q, k_cache, v_cache, valid, cfg)
+        o = _decode_attend(q, kd, vd, valid, cfg)
     return _attn_out(p, o.to(x1.dtype), cfg), (k_cache, v_cache)
 
 
@@ -455,15 +506,19 @@ def _ring(t, W: int):
 
 def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     """One layer over the prompt; returns (x, cache entry): {"k","v":
-    [B,S,Hkvp,dh]}, an RWKV layer's final state, or a hybrid layer's
-    K/V (the W-row ring under a sliding window) with its SSM state
-    ``ssm_h``/``conv``."""
+    [B,S,Hkvp,dh]} (int8 with ``k_scale``/``v_scale`` [B,S,Hkvp] under
+    kv-quant: the attention itself ran on the unquantized K/V), an RWKV
+    layer's final state, or a hybrid layer's K/V (the W-row ring under a
+    sliding window) with its SSM state ``ssm_h``/``conv``."""
     if cfg.block == "rwkv":
         state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
         return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
     attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
     entry = {"k": k, "v": v}
+    if cfg.kv_quant:
+        entry["k"], entry["k_scale"] = _kv_quantize(k)
+        entry["v"], entry["v_scale"] = _kv_quantize(v)
     if cfg.block == "hybrid":
         ssm_out, state = ssm.ssm_apply(
             p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
@@ -484,7 +539,8 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
     the cache is the state after the prompt, and ``capacity`` is unused;
     a hybrid cache is S rows wide (W, the ring, under a sliding window) and
     carries ``ssm_h``/``conv``: as in the reference, only the attention
-    family grows to ``capacity``."""
+    family grows to ``capacity`` (its int8 values and their scales alike
+    under kv-quant)."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, inputs["tokens"])
     B, S, _ = x.shape
@@ -498,7 +554,7 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
     cache = {key: torch.stack([e[key] for e in entries])
              for key in _cache_keys(cfg)}
     if cfg.block == "attn" and capacity > S:    # grow to the capacity
-        for key in ("k", "v"):
+        for key in _cache_keys(cfg):
             c = cache[key]
             pad = c.new_zeros(c.shape[:2] + (capacity - S,) + c.shape[3:])
             cache[key] = torch.cat([c, pad], dim=2)
@@ -511,8 +567,9 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
     (decoding starts at pos 0), or for RWKV the zero state {"s":
     [L,B,H,N,N] fp32, "tm_x", "cm_x": [L,B,D], "pos"} (no capacity): the
     reference's ``init_cache``. A sliding window makes C = W (the ring)
-    whatever ``capacity``; a hybrid cache adds the zero SSM state
-    ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]."""
+    whatever ``capacity``; kv-quant makes K/V int8 and adds the bf16
+    ``k_scale``/``v_scale`` [L,B,C,Hkvp]; a hybrid cache adds the zero SSM
+    state ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]."""
     _check_family(cfg)
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.block == "rwkv":
@@ -523,8 +580,13 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
         return {**cache, "pos": pos}
     C = cfg.sliding_window or capacity
     shape = (cfg.num_layers, batch, C, cfg.padded_kv_heads, cfg.dh)
-    cache = {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+    kv_dt = torch.int8 if cfg.kv_quant else cfg.tdtype
+    cache = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
+             "v": torch.zeros(shape, dtype=kv_dt, device=device)}
+    if cfg.kv_quant:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                     device=device)
     if cfg.block == "hybrid":
         state = ssm.init_ssm_state(cfg, cfg.num_layers * batch,
                                    device=device)
@@ -538,9 +600,10 @@ def _cache_keys(cfg: ModelConfig):
     """The per-layer entries of a dense cache (all but ``pos``)."""
     if cfg.block == "rwkv":
         return ("s", "tm_x", "cm_x")
+    keys = ("k", "v") + (("k_scale", "v_scale") if cfg.kv_quant else ())
     if cfg.block == "hybrid":
-        return ("k", "v", "ssm_h", "conv")
-    return ("k", "v")
+        keys += ("ssm_h", "conv")
+    return keys
 
 
 def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
@@ -551,7 +614,7 @@ def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
         return x1
     xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
     attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
-                              impl=impl)
+                              impl=impl, scales=entry)
     if cfg.block == "hybrid":
         ssm_out, state = ssm.ssm_step(
             p["ssm"], xn, {"h": entry["ssm_h"], "conv": entry["conv"]}, cfg)
@@ -759,3 +822,27 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
             out = _ffn(p, out + _attn_out(p, o.to(out.dtype), cfg), cfg)
     out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, out[:, -1]), pool
+
+
+def verify_chunk(params, cfg: ModelConfig, cache, tokens, start: int,
+                 impl: str = "kernel"):
+    """Score ``tokens`` [B,k] at positions [start, start+k) against the
+    dense cache: the speculative-decoding verify pass. Writes the tokens'
+    K/V into the cache in place (a rejected suffix is overwritten by the
+    next call, and causally masked meanwhile) and returns (logits
+    [B,k,Vp] fp32, the cache with ``pos`` = start + k). Each layer is one
+    ``attn_chunk``: on the card the flash kernel with k query rows at
+    ``q_offset=start``. The attention family with a bf16 cache only, as
+    the reference asserts."""
+    _check_attn(cfg, "the verify pass")
+    x = embed_tokens(params, cfg, tokens)
+    B, k, D = x.shape
+    for i, p in enumerate(params["blocks"]):
+        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i], cache["v"][i],
+                                 start, impl=impl)
+        x = _ffn(p, x + attn_out, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, cfg, x.reshape(B * k, D)).reshape(B, k, -1)
+    return logits, {**cache, "pos": torch.full_like(cache["pos"],
+                                                    start + k)}

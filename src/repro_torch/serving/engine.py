@@ -19,8 +19,10 @@ surface, as in ``repro.serving.engine``:
   ``evict`` is an O(1) refcount decrement per block, decode attends over a
   pow2-bucketed window that tracks the active context, and the prefix
   cache shares blocks between entries by refcount, never by copy.
-- **dense** (``paged=False``, and always for RWKV-6 and the hybrid
-  family): one ``[slots, capacity]``-wide cache with per-slot positions;
+- **dense** (``paged=False``, and always for RWKV-6, the hybrid family
+  and kv-quant): one ``[slots, capacity]``-wide cache with per-slot
+  positions (int8 with bf16 scales per token and head under kv-quant, so
+  a handoff carries (1 + 2/dh) bytes per element against bf16's 2);
   for RWKV-6 the per-slot recurrent state ``s``/``tm_x``/``cm_x``, which
   is what the disaggregated handoff carries (O(1) per request, whatever
   the prompt); for a hybrid model with a sliding window W (hymba-1.5b)
@@ -479,16 +481,16 @@ class Engine:
 
     def _insert_dense(self, slot: int, src) -> None:
         """Copy a B=1 cache into decode slot ``slot``, in place: K/V rows
-        zero-padded or cut to the width of this engine's own cache (its
-        capacity, or a sliding window's ring of W rows), every other entry
-        (an RWKV or SSM state) as a whole row, as the reference's
-        ``_insert_impl``."""
+        (and under kv-quant their scales) zero-padded or cut to the width
+        of this engine's own cache (its capacity, or a sliding window's
+        ring of W rows), every other entry (an RWKV or SSM state) as a
+        whole row, as the reference's ``_insert_impl``."""
         for kk, dst_all in self.cache.items():
             if kk == "pos":
                 continue
             dst = dst_all[:, slot]
             row = src[kk][:, 0]
-            if kk in ("k", "v"):
+            if kk in ("k", "v", "k_scale", "v_scale"):
                 row = row[:, :dst.shape[1]]
                 dst[:, row.shape[1]:] = 0
                 dst = dst[:, :row.shape[1]]

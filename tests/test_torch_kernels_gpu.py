@@ -834,3 +834,76 @@ def test_dense_kernel_over_hymba_ring(cuda, B):
     out2 = decode_attention(q, k2, v2, lens)
     torch.cuda.synchronize()
     assert torch.equal(out, out2)
+
+
+# musicgen-large's heads of 64: multi-head attention, G = 1
+MUSICGEN = (32, 32)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,off", [
+    (1, 4, 516, 16, 2, 128, 512),       # the verify pass: 4 rows after 512
+    (2, 4, 600, 16, 2, 128, 596),
+    (1, 4, 516, 32, 32, 64, 512),
+    (1, 512, 512, 32, 32, 64, 0),       # musicgen's prefill
+    (1, 509, 509, 32, 32, 64, 0),
+    (2, 70, 300, 32, 32, 64, 230),
+    (1, 64, 576, 32, 32, 64, 512),
+])
+def test_flash_kernel_at_verify_and_musicgen_shapes(cuda, B, Sq, Skv, H, Hkv,
+                                                     dh, off):
+    """Flash at speculative decoding's verify shape (k = 4 query rows at
+    ``q_offset`` 512: 4 x G of a tile's 64 rows alive) and at musicgen's
+    32/32 heads of 64, against its plain version."""
+    rng = np.random.default_rng(83)
+    q = _bf16(rng, (B, Sq, H, dh), cuda)
+    k = _bf16(rng, (B, Skv, Hkv, dh), cuda)
+    v = _bf16(rng, (B, Skv, Hkv, dh), cuda)
+    n0 = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0 + 1
+    ref = flash_attention_ref(q, k, v, causal=True, q_offset=off)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+
+
+def test_paged_kernel_at_musicgen_heads(cuda):
+    """Paged decode at musicgen's 32/32 heads of 64 (one query row per KV
+    head in the MMA tile), the serve's step and mixed lengths, against the
+    plain version, and bit-unchanged with the trash and tail poisoned."""
+    H, Hkv = MUSICGEN
+    rng = np.random.default_rng(89)
+    B, Bs, nb = 8, 8, 73
+    lengths = (544, 1, 64, 577, 300, 9, 250, 544)
+    q = _bf16(rng, (B, H, 64), cuda)
+    pool_k, pool_v, tables, lens = _paged_case(
+        rng, B, 1 + sum(-(-n // Bs) for n in lengths), Bs, Hkv, lengths,
+        cuda, nb=nb, dh=64)
+    out = decode_attention_paged(q, pool_k, pool_v, tables, lens)
+    torch.cuda.synchronize()
+    ref = decode_attention_paged_plain(q, pool_k, pool_v, tables, lens)
+    assert (out.float() - ref.float()).abs().max().item() <= ATOL
+    pk2, pv2 = _poison_paged(pool_k, pool_v, tables, lengths, Bs)
+    assert torch.equal(out, decode_attention_paged(q, pk2, pv2, tables,
+                                                   lens))
+
+
+def test_moe_ffn_at_granite_width_is_bit_reproducible(cuda):
+    """granite's MoE FFN (32 experts top-8, d_model 1024, d_ff 512) on a
+    512-token prefill and an 8-token decode batch, run twice on the same
+    inputs: bit-equal outputs (the combine sums each token's gated outputs
+    in a fixed order; no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg = get_config("granite-moe-1b-a400m")
+    p = T._init_moe(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    rng = np.random.default_rng(97)
+    for B, S in ((1, 512), (8, 1)):
+        x = _bf16(rng, (B, S, cfg.d_model), cuda)
+        y1, a1 = moe.moe_ffn(x, p, cfg.moe)
+        y2, a2 = moe.moe_ffn(x, p, cfg.moe)
+        torch.cuda.synchronize()
+        assert torch.isfinite(y1).all()
+        assert torch.equal(y1, y2)
+        assert torch.equal(a1["moe_dropped"], a2["moe_dropped"])

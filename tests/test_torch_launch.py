@@ -267,3 +267,92 @@ def test_launcher_refuses_calibrate_without_sim(capsys):
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu", "--calibrate"])
     assert "--backend sim" in capsys.readouterr().err
+
+
+# the port's record adds these to the reference's: its capacity, its prefix
+# hits, and the bytes moved in every mode
+PORT_ONLY = {"capacity", "prefix_hits", "transferred_MB"}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+@pytest.mark.parametrize("flags", [
+    ("--mode", "coloc"),
+    ("--scheduler", "prefix-affinity", "--workload", "sessions", "--turns",
+     "2"),
+])
+def test_launcher_sim_serves_what_the_reference_sim_serves(arch, flags,
+                                                           capsys, tmp_path):
+    """``--backend sim`` serves the never-chunked families co-located and
+    prefix-affine, as the reference's launcher does (it always takes the
+    smoke configuration, so the port is given ``--smoke``): the same
+    record, the port's additions aside."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve
+    common = ["--backend", "sim", "--arch", arch, "--requests", "4",
+              "--prefill-chip", "h100", "--decode-chip", "h100",
+              "--calibration-path", str(tmp_path / "none.json"), *flags]
+    serve.main(["--smoke", *common])
+    mine = json.loads(capsys.readouterr().out)
+    jserve.main(common)
+    ref = json.loads(capsys.readouterr().out)
+    assert mine["completed"] > 0 and mine["arch"].startswith(arch[:5])
+    assert set(mine) - set(ref) <= PORT_ONLY and set(ref) <= set(mine)
+    assert {k: mine[k] for k in ref} == ref
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mistral-large-123b"])
+def test_launcher_refuses_models_larger_than_one_card(arch, monkeypatch,
+                                                      capsys):
+    """At full size their bf16 weights exceed one card's 80 GiB: the torch
+    backend exits at start-up naming the sharding slice, before any
+    parameter is allocated."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    def no_init(*args, **kw):
+        raise AssertionError("parameters allocated")
+
+    monkeypatch.setattr(transformer, "init_params", no_init)
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", arch, "--device", "cpu", "--requests", "2"])
+    err = capsys.readouterr().err
+    assert "sharding slice" in err and "80 GiB" in err
+
+
+def test_launcher_refuses_llava_naming_the_frontends_slice(monkeypatch,
+                                                           capsys):
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    def no_init(*args, **kw):
+        raise AssertionError("parameters allocated")
+
+    monkeypatch.setattr(transformer, "init_params", no_init)
+    for size in ([], ["--smoke"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--arch", "llava-next-34b", "--device", "cpu",
+                        *size])
+        assert "frontends slice" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mistral-large-123b",
+                                  "musicgen-large"])
+def test_launcher_serves_the_new_smoke_configurations_on_cpu(arch):
+    """``--smoke`` serves kimi's (an MoE with a shared expert), mistral's
+    and musicgen's smoke configurations disaggregated on the CPU."""
+    rec = _serve("--arch", arch, "--requests", "3", "--isl", "16", "--osl",
+                 "4", "--rate-matcher", "none")
+    from repro_torch.configs import get_smoke_config
+    assert rec["completed"] == 3 and rec["transfers"] == 3
+    assert rec["arch"] == get_smoke_config(arch).name
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mistral-large-123b",
+                                  "llava-next-34b", "musicgen-large"])
+def test_launcher_sim_takes_the_new_ids_at_full_size(arch, tmp_path,
+                                                      capsys):
+    from repro_torch.launch import serve
+    rec = serve.main(["--backend", "sim", "--arch", arch, "--requests", "4",
+                      "--isl", "512", "--osl", "16", "--calibration-path",
+                      str(tmp_path / "none.json")])
+    assert rec["completed"] == 4 and rec["arch"] == arch

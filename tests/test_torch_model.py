@@ -416,8 +416,9 @@ def test_bf16_logits_are_float32():
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    ({"kv_quant": True}, "kv-quant / sliding-window slice"),
-    ({"sliding_window": 16}, "kv-quant / sliding-window slice"),
+    # the kv-quant slice has landed: an int8 cache with its scales
+    pytest.param({"kv_quant": True}, None, id="change0-kv-quant slice"),
+    ({"sliding_window": 16}, "a later slice"),
     # the MoE slice has landed: an MoE config is accepted
     pytest.param({"moe": MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)},
                  None, id="change2-MoE slice"),
@@ -430,6 +431,10 @@ def test_unported_configs_name_their_slice(change, slice_name):
         assert T.unported(cfg) is None
         cache = T.init_cache(cfg, 1, 8, device="cpu")
         assert cache["k"].shape[2] == 8
+        if "kv_quant" in change:
+            assert cache["k"].dtype == torch.int8
+            assert cache["k_scale"].shape == (2, 1, 8, 1)
+            return
         leaf = "moe" if "moe" in change else "ssm"
         assert leaf in T.init_params(cfg, 0, device="cpu")["blocks"][0]
         assert ("ssm_h" in cache) == (leaf == "ssm")

@@ -4,7 +4,8 @@ and numpy-made inputs.
 
 Tolerance: float32 throughout, where the two packages differ only in
 summation order (XLA's einsums and scatter-add vs PyTorch's matmuls and
-``index_add_``): 1e-4 of the output's scale, as ``test_torch_model.py``.
+the port's gather-sum combine): 1e-4 of the output's scale, as
+``test_torch_model.py``.
 Routing is discrete, so it is compared exactly: each MoE call's token ->
 expert mask (the top-k sets) and its dropped count must be equal on both
 sides; an output can only agree within the tolerance if they are.
@@ -84,7 +85,17 @@ def test_granite_config_mirrors_reference():
         for fn in ("param_count", "active_param_count", "kv_bytes_per_token"):
             assert getattr(cfg, fn)() == getattr(jcfg, fn)(), fn
     cfg = get_config(ARCH)
-    assert ARCH in ARCH_IDS and "kimi-k2-1t-a32b" not in ARCH_IDS
+    assert ARCH in ARCH_IDS and "kimi-k2-1t-a32b" in ARCH_IDS
+    # kimi-k2 is registered (the simulator and the sweep price it); its
+    # 1T parameters exceed one card, so the torch backend refuses its full
+    # size before allocating anything, and serves its smoke configuration
+    from argparse import Namespace
+    from repro_torch.launch.serve import torch_refusal
+    serve_args = Namespace(mode="disagg", scheduler="fcfs")
+    assert "sharding slice" in torch_refusal(get_config("kimi-k2-1t-a32b"),
+                                             serve_args)
+    assert torch_refusal(get_smoke_config("kimi-k2-1t-a32b"),
+                         serve_args) is None
     assert T.unported(cfg) is None and T.supports_paged(cfg)
     assert (cfg.dh, cfg.q_group, cfg.padded_vocab) == (64, 2, 49168)
     assert cfg.param_count() == 1_384_963_072

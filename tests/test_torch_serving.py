@@ -173,14 +173,17 @@ def test_engine_surface_and_unported_paths(weights, monkeypatch):
         Engine(3, cfg, tp, chunk_size=12, device="cpu")
     with pytest.raises(ValueError, match="capacity"):
         eng.prefill_chunked(np.arange(250) % 100, 24)  # pads to 264 > 256
-    # what is still unported names the slice that brings it; MoE and the
-    # hybrid family, whose slices have landed, are accepted (a hybrid
-    # engine in the dense layout only, as the reference's)
+    # what is still unported names the slice that brings it; MoE, the
+    # hybrid family and kv-quant, whose slices have landed, are accepted
+    # (a hybrid or kv-quant engine in the dense layout only, as the
+    # reference's)
     hybrid = cfg.replace(block="hybrid")
-    for change, slice_name in (({"kv_quant": True}, "kv-quant"),
-                               ({"sliding_window": 8}, "sliding-window")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            Engine(4, cfg.replace(**change), tp, device="cpu")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        Engine(4, cfg.replace(sliding_window=8), tp, device="cpu")
+    kvq = cfg.replace(kv_quant=True)
+    assert not Engine(4, kvq, tp, device="cpu").paged
+    with pytest.raises(ValueError, match="paged KV unsupported"):
+        Engine(4, kvq, tp, paged=True, device="cpu")
     hybrid_p = init_torch_params(hybrid, 0, device="cpu")
     assert not Engine(4, hybrid, hybrid_p, device="cpu").paged
     assert not Engine(4, hybrid, hybrid_p, paged=False, device="cpu").paged

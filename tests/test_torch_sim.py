@@ -162,6 +162,26 @@ def test_sim_cluster_matches_reference_for_granite(size):
             assert s_t == s_j and st_t == st_j and now_t == now_j, case
 
 
+@pytest.mark.parametrize("size", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ["musicgen-large", "mistral-large-123b",
+                                  "llava-next-34b", "kimi-k2-1t-a32b"])
+def test_sim_cluster_matches_reference_for_the_new_ids(arch, size):
+    """The registry's four newest ids (the sim prices all ten, whatever
+    the torch backend serves) on every corpus trace and policy stack,
+    h100: the same metrics, streams, transfers and clock as the
+    reference, bit for bit."""
+    for trace in TRACES:
+        for stack in STACKS:
+            case = (trace, arch, size, "h100", stack)
+            m_t, s_t, st_t, now_t = _serve_sim(True, *case)
+            m_j, s_j, st_j, now_j = _serve_sim(False, *case)
+            assert m_t["completed"] == len(s_t) > 0, case
+            bad = {k: (m_t[k], m_j[k]) for k in m_t
+                   if not _same(m_t[k], m_j[k])}
+            assert not bad and sorted(m_t) == sorted(m_j), (case, bad)
+            assert s_t == s_j and st_t == st_j and now_t == now_j, case
+
+
 def test_perf_llm_bridge_matches_reference():
     """Both served families map to the reference's analytic model field for
     field, at full width: qwen to GQA, RWKV-6 to attention-free."""

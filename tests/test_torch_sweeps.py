@@ -553,8 +553,9 @@ def test_arch_ids_resolve_in_sweeps():
     assert m.num_layers > 0
     with pytest.raises(KeyError):
         get_perf_model("not-a-model")
-    for arch in ("qwen2.5-3b", "qwen3-14b", "phi3-medium-14b",
-                 "rwkv6-1.6b", "llama-3.1-8b"):
+    from repro_torch.configs import ARCH_IDS
+    assert len(ARCH_IDS) == 10
+    for arch in ARCH_IDS + ("llama-3.1-8b",):
         assert dataclasses.asdict(get_perf_model(arch)) == \
             dataclasses.asdict(JPM.get_perf_model(arch)), arch
 
@@ -612,7 +613,9 @@ def test_simulate_cell_reuse_hits_prefix_cache_and_speeds_prefill():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "qwen3-14b",
-                                  "phi3-medium-14b", "granite-moe-1b-a400m"])
+                                  "phi3-medium-14b", "granite-moe-1b-a400m",
+                                  "musicgen-large", "mistral-large-123b",
+                                  "llava-next-34b", "kimi-k2-1t-a32b"])
 def test_simulate_cell_arch_ids_match_reference(arch):
     """Architecture ids resolve through each package's own registry; the
     episodes agree, the cache-less family's reuse through the shorter
@@ -820,6 +823,27 @@ def test_launcher_granite_matches_reference(tmp_path):
         assert mine[rel] == ref[rel], f"shard bytes differ: {rel}"
 
 
+@pytest.mark.parametrize("arch", ["musicgen-large", "mistral-large-123b",
+                                  "llava-next-34b", "kimi-k2-1t-a32b"])
+def test_launcher_new_arch_ids_match_reference(arch, tmp_path):
+    """``--models`` with the registry's four largest or newest ids: each
+    resolves through the port's registry as through the reference's, and
+    the port's report and shard bytes equal the reference's (64 chips at
+    most: kimi-k2's weights need more than 16 cards)."""
+    args = ["--models", arch, "--hardware", "h100", "h100:a100", "--isl",
+            "2048", "--osl", "256", "--reuse", "0.0", "--modes", "disagg",
+            "coloc", "--max-chips", "64", "--ttl-targets", "6",
+            "--simulate", "--sim-requests", "4", "--quiet"]
+    rep = LS.main(args + ["--store", str(tmp_path / "p")])
+    jrep = JLS.main(args + ["--store", str(tmp_path / "j")])
+    assert _report(rep) == _report(jrep)
+    assert rep.cells_total == rep.cells_run > 0 and rep.records > 0
+    mine, ref = _shard_tree(tmp_path / "p"), _shard_tree(tmp_path / "j")
+    assert mine and sorted(mine) == sorted(ref)
+    for rel in sorted(mine):
+        assert mine[rel] == ref[rel], f"shard bytes differ: {rel}"
+
+
 def test_motivation_grid_hash_and_cells():
     """The design grid of ``chip_smoke.py``'s sweep phase: five models x
     three hardware pairs x 3 ISL x 2 OSL x 2 reuse x both modes, with the
@@ -924,9 +948,11 @@ def test_param_counts_match_public_models():
     assert abs(LLAMA31_405B.params() / 1e9 - 405) < 15
     from repro.configs import get_config as jget_config
     from repro_torch.configs import get_config
-    # the port's registry (no kimi-k2 there): the two 14B dense models,
-    # by their configs' counts (untied heads)
-    for arch, billions in (("qwen3-14b", 14.8), ("phi3-medium-14b", 14.7)):
+    # the port's registry: the two 14B dense models, mistral-large and
+    # kimi-k2 (~1T), by their configs' counts (untied heads)
+    for arch, billions in (("qwen3-14b", 14.8), ("phi3-medium-14b", 14.7),
+                           ("mistral-large-123b", 122.6),
+                           ("kimi-k2-1t-a32b", 1044.9)):
         m = perf_llm_from_config(get_config(arch))
         assert abs(m.params() / 1e9 - billions) < 0.3, (arch, m.params())
         assert dataclasses.asdict(m) == dataclasses.asdict(
