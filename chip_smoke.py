@@ -172,7 +172,33 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      counted, flash ran exactly 36 x target calls + 4 x draft prefills
      and dense decode 4 x draft steps, and the first token that differs
      from the bf16 greedy decode, if any, is a near-tie there; prints
-     acceptance, target calls and tokens/s beside the greedy decode's.
+     acceptance, target calls and tokens/s beside the greedy decode's;
+ 29. llava model: full-width, full-depth llava-next-34b (60 layers, 56/8
+     heads of 128: G = 7; 64.2 GiB of bf16 weights), random weights from
+     seed 0, a vision prompt from ``synth_inputs`` (2,880 patch
+     embeddings projected by the 2-layer MLP and prepended to 512 text
+     tokens: 3,392 positions), ``prefill_full`` and 4 paged decode steps,
+     three ways by phase 4's rule, every flash and paged decode call held
+     against its plain version on the same inputs; peak memory; every
+     tensor freed before phase 30;
+ 30. llava serve: ``serve.main --arch llava-next-34b`` with phase 5's
+     traffic (text prompts, as the reference's engine feeds); fails unless
+     all 16 complete, flash ran exactly 60 times per prefill and paged
+     decode exactly 60 times per decode step and per engine's warm-up
+     step, neither dense decode nor WKV ran, and each handoff carried
+     125,829,120 bytes;
+ 31. training at full width, with no kernel launch allowed (none has a
+     backward): qwen2.5-3b at full depth through the ``Trainer`` (AdamW,
+     remat, 5 steps of 4 x 512: loss, grad norm, step seconds, tokens/s,
+     peak memory, the step's bound); at 4 layers, step 0's bf16 loss and
+     grads against a float32 upcast by ``TRAIN_RULE``, then 12 AdamW
+     steps at lr 1e-3 that must lower the loss; granite-moe-1b-a400m,
+     rwkv6-1.6b and hymba-1.5b at 4 layers, 2 steps each, finite;
+ 32. the training launcher on the card: a smoke-size trainer crashed at
+     step 6 (``fail_at``), ``launch.train.main --device cuda`` resuming it
+     from its step-4 checkpoint to step 10, a fresh launcher run to 10;
+     the resumed parameters within 2e-5 of the fresh ones, bit-equality
+     printed.
 
 Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
 16/8 heads) against their plain versions at the serve's shapes and their
@@ -185,14 +211,17 @@ bit-identical to none; SDPA given the band as an explicit mask) and for
 dense decode over the 1024-row ring (lengths 1 to 1024, poisoned rows);
 phase 3h does so for flash and paged decode at musicgen-large's 32/32
 heads of 64 (G = 1) and for flash at the verify pass's shape (4 query
-rows after 512 cached ones). Phase 18 also relaunches layer 0's MoE FFN
-20 times (bit-equal outputs, or it fails), beside the reference's
-scatter-add combine (``index_add_``) relaunched as often, and fails
-unless each bf16 path run twice gives bit-equal logits.
+rows after 512 cached ones); phase 3i for flash and paged decode at
+llava-next-34b's 56/8 heads of 128 (G = 7), flash timed at the text
+prompt's S = 512 and the vision prompt's S = 3,392. Phase 18 also
+relaunches layer 0's MoE FFN 20 times (bit-equal outputs, or it fails),
+beside the reference's scatter-add combine (``index_add_``) relaunched
+as often, and fails unless each bf16 path run twice gives bit-equal
+logits.
 
-Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28) runs with every
-kernel's launch count set to 0 just before it and read just after; each
-phase prints its seconds.
+Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28, 30-32) runs with
+every kernel's launch count set to 0 just before it and read just after;
+each phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -255,6 +284,30 @@ HEADS_MUSICGEN = (32, 32)
 DRAFT_LAYERS = 4
 SPEC_K = 4
 NEAR_TIE = 2e-2
+# llava-next-34b's (query, KV) heads of dh 128 (G = 7: 9 positions in a
+# flash tile's 64 rows, one row dead), its vision prompt (2,880 patch
+# embeddings before 512 text tokens) and one 512-token prompt's handoff
+LLAVA = "llava-next-34b"
+HEADS_LLAVA = (56, 8)
+LLAVA_TEXT = 512
+LLAVA_HANDOFF = 125_829_120
+# phase 31's rule for a bf16 train step against the float32 one on the
+# same weights and batch: bf16 keeps 8 bits of mantissa (2^-9 relative per
+# rounding); over 4 layers' forward and backward at full width the grads
+# sit ~2-3% (relative L2) from float32 and the loss ~1e-4 relative (the
+# same step on the host's CPU, vocabulary cut to 16,384): the rule allows
+# about three times that — loss, all grads together, each grad leaf
+TRAIN_RULE = {"loss": 1e-3, "grads": 6e-2, "leaf": 0.1}
+# phase 31's descent: 12 AdamW steps, warmup 2, on batches 0 and 1 in
+# turn, as the reference's test_optimizer_decreases_loss, whose lr of
+# 1e-2 suits its 64-wide model: at qwen2.5-3b's width it raises the JAX
+# package's own loss over the 12 steps (10.25 -> 13.98, float32 on the
+# host's CPU, 4 layers, vocabulary cut to 16,384), where 1e-3 lowers it
+# (10.25 -> 0.09)
+DESCEND_LR = 1e-3
+# phase 32's hold of resumed against fresh parameters: the reference's
+# own test_trainer_crash_resume_exact bound
+RESUME_ATOL = 2e-5
 # phase 17's design grid, its content address and the perf-model points it
 # evaluates (both deterministic: the JAX package's sweep gives the same)
 SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
@@ -908,12 +961,12 @@ class AttentionTap:
                  f"the model's own inputs: {bad or 'no call tapped'}")
 
 
-def paged_slots(torch, T, cfgs, caches, S: int, dev):
+def paged_slots(torch, T, cfgs, caches, S: int, dev, slots: int = 4):
     """Block pools of 8-token blocks (one per configuration and its
-    S-token prefill cache) and the shared tables of 4 decode slots that
-    all hold that cache, with 8 blocks each to grow into. Returns (pools,
-    tables, pos)."""
-    cfg, slots, extra, Bs = cfgs[0], 4, 8, 8
+    S-token prefill cache) and the shared tables of ``slots`` decode slots
+    that all hold that cache, with 8 blocks each to grow into. Returns
+    (pools, tables, pos)."""
+    cfg, extra, Bs = cfgs[0], 8, 8
     Lr, nbk = cfg.num_layers, S // Bs
     width = 1
     while width < nbk + extra:
@@ -2083,6 +2136,332 @@ def speculative_phase(torch, dev, drive, get_config, N: int = 64,
     del params
 
 
+class UpcastOnUse:
+    """A bf16 leaf of the float32 reference, upcast only where the model
+    reads it: embedding rows by index, the LM head whole for the logits'
+    product (then freed). llava's embedding and head in float32 would
+    take 3.4 GiB beside its 64.2 GiB of bf16 weights."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __getitem__(self, idx):
+        return self.t[idx].float()
+
+    def float(self):
+        return self.t.float()
+
+
+def llava_model_phase(torch, dev, get_config, steps: int = 4) -> None:
+    """Phase 29: llava-next-34b at full width and depth (60 layers, 56/8
+    heads of 128: G = 7), bf16, random weights from seed 0. The input is
+    ``synth_inputs`` at the vision prompt's shape: 2,880 patch embeddings
+    (projected by ``vis_proj`` and prepended) and 512 text tokens, 3,392
+    positions; ``prefill_full`` over it, then paged decode steps for one
+    slot holding its cache, three ways by phase 4's rule (kernel bf16,
+    plain bf16, plain float32 upcast one block at a time, its embedding
+    and head only where read), every flash and paged decode call held
+    against its plain version on the same inputs (``AttentionTap``). The
+    bf16 prefill caches wait on the host while the float32 prefill runs;
+    peak memory printed. Everything is freed on return: a second copy of
+    the weights does not fit beside the serve's."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.models.frontends import synth_inputs
+    from repro_torch.serving.backends import init_torch_params
+    cfg = get_config(LLAVA)
+    c32 = cfg.replace(dtype="float32")
+    Lr, V, P = cfg.num_layers, cfg.vocab_size, cfg.vision_patches
+    S = P + LLAVA_TEXT
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_torch_params(cfg, 0, device=dev)
+    inputs = synth_inputs(cfg, ShapeConfig("vision", S, 1, "prefill"), 0,
+                          device=dev)
+    torch.cuda.synchronize()
+    log(f"# model {LLAVA}: {n_params(params):,} parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of bf16 weights "
+        f"on the card ({time.perf_counter() - t0:.1f} s to draw)")
+    p32 = {"embed": UpcastOnUse(params["embed"]),
+           "lm_head": UpcastOnUse(params["lm_head"]),
+           "final_norm": params["final_norm"].float(),
+           "vis_proj": upcast_tree(params["vis_proj"]),
+           "blocks": UpcastBlocks(params["blocks"])}
+    what = f"{LLAVA} prefill S={S} ({P} patches + {LLAVA_TEXT} tokens)"
+    with AttentionTap() as attn, torch.inference_mode():
+        lk, ck = T.prefill_full(params, cfg, inputs, impl="kernel")
+        attn.check(f"model {what}")
+        lp, cp = T.prefill_full(params, cfg, inputs, impl="plain")
+        ck, cp = tree_to(ck, "cpu"), tree_to(cp, "cpu")
+        lr, cr = T.prefill_full(p32, c32, inputs, impl="plain")
+        hold(torch, what, Lr, lk, lp, lr, V)
+        pools, tables, pos = paged_slots(torch, T, (cfg, cfg, c32),
+                                         (ck, cp, cr), S, dev, slots=1)
+        del ck, cp, cr
+        toks = lr[:, :V].argmax(-1)
+        for step in range(steps):
+            dk, _, _ = T.decode_step_paged(params, cfg, pools[0], tables,
+                                           pos, toks, impl="kernel")
+            attn.check(f"model {LLAVA} decode step {step}")
+            dp, _, _ = T.decode_step_paged(params, cfg, pools[1], tables,
+                                           pos, toks, impl="plain")
+            dr, _, _ = T.decode_step_paged(p32, c32, pools[2], tables, pos,
+                                           toks, impl="plain")
+            hold(torch, f"{LLAVA} decode step {step}", Lr, dk, dp, dr, V)
+            pos, toks = pos + 1, dr[:, :V].argmax(-1)
+    torch.cuda.synchronize()
+    log(f"# phase model {LLAVA} ({Lr} layers, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.dh}, G = {cfg.q_group}, a "
+        f"{S}-position vision prompt): {time.perf_counter() - t0:.1f} s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _finite(torch, *xs) -> bool:
+    return all(bool(torch.isfinite(torch.as_tensor(x)).all()) for x in xs)
+
+
+def train_phase(torch, dev, drive, get_config, steps: int = 5, B: int = 4,
+                S: int = 512) -> None:
+    """Phase 31: training at full width; no hand-written kernel may launch
+    (none has a backward).
+
+    - qwen2.5-3b at full depth: the ``Trainer`` (AdamW, remat on) on
+      batches of B x S, ``steps`` steps; loss, grad norm, step seconds
+      (ending in a device synchronise), tokens/s and peak memory, beside
+      the step's bound (6 x params x tokens of bf16 work at 989 TFLOP/s, 8
+      x with remat's second forward). The run keeps no checkpoint (its
+      40.8 GB of state): phase 32 checks that path.
+    - qwen2.5-3b at full width and 4 layers: step 0's bf16 loss and grads
+      against a float32 upcast of the same weights by ``TRAIN_RULE``;
+      then 12 AdamW steps at ``DESCEND_LR``, warmup 2, on batches 0 and 1
+      in turn (the reference's ``test_optimizer_decreases_loss``) must
+      lower the loss.
+    - granite-moe-1b-a400m, rwkv6-1.6b and hymba-1.5b at full width and 4
+      layers: 2 steps each, finite, the MoE metrics printed: their first
+      backward on the card, through the MoE dispatch, the plain WKV and
+      the SSM scan."""
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import loss_and_grad, make_train_step
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import flatten_with_paths
+
+    def no_launch(path, n):
+        if any(n.values()):
+            fail(f"{path}: kernels launched in a training step: {n}")
+
+    cfg = get_config("qwen2.5-3b")
+    if not cfg.remat or cfg.optimizer != "adamw":
+        fail(f"{cfg.name}: expected remat and AdamW, got {cfg.remat}, "
+             f"{cfg.optimizer}")
+    N, tokens = cfg.param_count(), B * S
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+
+    def full_depth():
+        tr = Trainer(cfg, make_pipeline(cfg, S, B, device=dev),
+                     ckpt_dir=ckpt_dir, ckpt_every=10 ** 9, device=dev)
+        tr.checkpoint = lambda: None
+        tr.train(steps)
+        return tr
+
+    try:
+        tr, n = drive("train-qwen", full_depth)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    no_launch("train-qwen", n)
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.history
+    train_split(torch, tr, cfg, steps)
+    del tr
+    for h in hist:
+        log(f"# train {cfg.name} step {h['step']}: loss {h['loss']:.4f} "
+            f"grad_norm {h['grad_norm']:.4f} step {h['step_s'] * 1e3:.1f} ms "
+            f"{tokens / h['step_s']:.0f} tokens/s")
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train {cfg.name}: non-finite step {h}")
+    warm = sorted(h["step_s"] for h in hist[1:])
+    log(f"# train {cfg.name} ({cfg.num_layers} layers, {N:,} parameters, "
+        f"B={B} S={S}, AdamW, remat): median step of steps 1-"
+        f"{len(hist) - 1} {warm[len(warm) // 2] * 1e3:.1f} ms, "
+        f"{tokens / warm[len(warm) // 2]:.0f} tokens/s; bound "
+        f"{6 * N * tokens / PEAK_BF16_FLOPS * 1e3:.1f} ms (6 N T), "
+        f"{8 * N * tokens / PEAK_BF16_FLOPS * 1e3:.1f} ms with remat "
+        f"(8 N T); peak memory {peak / 2**30:.2f} GiB, "
+        f"{peak / N:.1f} B per parameter")
+
+    # 4 layers: bf16 against float32, then the loss must fall
+    c4 = cfg.replace(num_layers=4)
+    params = T.init_params(c4, 0, device=dev)
+    data = make_pipeline(c4, S, B, device=dev)
+
+    def rule():
+        b0 = data.batch_at(0)
+        l16, _, g16 = loss_and_grad(params, c4, b0)
+        p32 = {k: (v.float() if torch.is_tensor(v) else
+                   [upcast_tree(b) for b in v]) for k, v in params.items()}
+        l32, _, g32 = loss_and_grad(p32, c4.replace(dtype="float32"), b0)
+        del p32
+        leaf = {}
+        d2 = r2 = 0.0
+        for (path, a), (_, b) in zip(flatten_with_paths(g16),
+                                     flatten_with_paths(g32)):
+            d, r = (a - b).double().norm().item(), b.double().norm().item()
+            leaf[path] = d / max(r, 1e-30)
+            d2, r2 = d2 + d * d, r2 + r * r
+        return float(l16), float(l32), (d2 / r2) ** 0.5, leaf
+
+    (l16, l32, grads, leaf), n = drive("train-bf16-vs-fp32", rule)
+    no_launch("train-bf16-vs-fp32", n)
+    worst = sorted(leaf.items(), key=lambda kv: -kv[1])[:3]
+    loss_err = abs(l16 - l32) / abs(l32)
+    log(f"# train {c4.name} 4 layers bf16 vs fp32, step 0: loss {l16:.5f} "
+        f"vs {l32:.5f} (rel {loss_err:.2e}, rule {TRAIN_RULE['loss']}); "
+        f"grads rel L2 {grads:.3e} (rule {TRAIN_RULE['grads']}); worst "
+        f"leaves " + ", ".join(f"{k} {e:.3e}" for k, e in worst)
+        + f" (rule {TRAIN_RULE['leaf']})")
+    if not (loss_err <= TRAIN_RULE["loss"] and grads <= TRAIN_RULE["grads"]
+            and worst[0][1] <= TRAIN_RULE["leaf"]):
+        fail(f"bf16 train step off float32: loss {loss_err}, grads {grads}, "
+             f"worst leaf {worst[0]}")
+
+    def descend():
+        opt = make_optimizer("adamw", lr=DESCEND_LR, warmup=2)
+        state, step_fn, out = opt.init(params), make_train_step(c4, opt), []
+        for i in range(12):
+            _, state, m = step_fn(params, state, data.batch_at(i % 2), i)
+            out.append(float(m["loss"]))
+        return out
+
+    losses, n = drive("train-descend", descend)
+    no_launch("train-descend", n)
+    log(f"# train {c4.name} 4 layers, 12 AdamW steps at lr {DESCEND_LR} on "
+        f"batches 0/1: losses {[round(x, 4) for x in losses]}")
+    if not (_finite(torch, losses) and losses[-1] < losses[0]):
+        fail(f"train: the loss did not fall over 12 steps: {losses}")
+    del params, data
+
+    for arch in (GRANITE, "rwkv6-1.6b", HYMBA):
+        ca = get_config(arch).replace(num_layers=4)
+
+        def two_steps():
+            p = T.init_params(ca, 0, device=dev)
+            opt = make_optimizer("adamw", lr=1e-3, warmup=1)
+            state, step_fn = opt.init(p), make_train_step(ca, opt)
+            d = make_pipeline(ca, S, B, device=dev)
+            out = []
+            for i in range(2):
+                t1 = time.perf_counter()
+                _, state, m = step_fn(p, state, d.batch_at(i), i)
+                torch.cuda.synchronize()
+                out.append({k: float(v) for k, v in m.items()}
+                           | {"step_s": time.perf_counter() - t1})
+            return out
+
+        hist, n = drive(f"train-{arch}", two_steps)
+        no_launch(f"train-{arch}", n)
+        for i, m in enumerate(hist):
+            log(f"# train {arch} 4 layers step {i}: " + json.dumps(
+                {k: round(v, 5) for k, v in m.items()}))
+            if not _finite(torch, list(m.values())):
+                fail(f"train {arch}: non-finite metrics {m}")
+
+
+def train_split(torch, tr, cfg, step: int) -> None:
+    """Where one more step of ``tr`` goes: host seconds (each part ending
+    in a device synchronise) of the loss and its fp32 grads, the clip and
+    the optimizer update; then a whole step's device busy time from the
+    profiler and the idle share beside its host time."""
+    from repro_torch.train.optimizer import clip_by_global_norm
+    from repro_torch.train.train_step import loss_and_grad
+    batch = tr.data.batch_at(step)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (_, _, grads), t_grad = timed(lambda: loss_and_grad(tr.params, cfg,
+                                                        batch))
+    (grads, _), t_clip = timed(lambda: clip_by_global_norm(grads, 1.0))
+    with torch.no_grad():
+        _, t_update = timed(lambda: tr.opt.update(grads, tr.opt_state,
+                                                  tr.params, step))
+    del grads
+    step_fn = functools.partial(tr._step_fn, tr.params, tr.opt_state, batch)
+    _, t_step = timed(lambda: step_fn(step))
+    busy = Timer(torch).device(step_fn, [(step,)])
+    log(f"# train {cfg.name} one step split: loss + grads {t_grad * 1e3:.1f} "
+        f"ms, clip {t_clip * 1e3:.1f} ms, AdamW update "
+        f"{t_update * 1e3:.1f} ms; a whole step {t_step * 1e3:.1f} ms, device "
+        f"busy " + (f"{busy:.1f} ms (idle share "
+                    f"{1 - busy / (t_step * 1e3):.3f})" if busy else
+                    "not measured"))
+
+
+def train_launcher_phase(torch, dev, drive, get_config,
+                         arch: str = "qwen2.5-3b") -> None:
+    """Phase 32: the launcher and the checkpoint on the card, at smoke
+    size. A ``Trainer`` set up as ``launch.train`` sets one up (its
+    defaults: 64 x 8 batches, lr 3e-3) checkpoints every 4 steps and
+    crashes at step 6 (``fail_at``); ``launch.train.main --device cuda``
+    resumes it from step 4 to 10; a second launcher run trains 10 steps
+    fresh. The resumed parameters must lie within ``RESUME_ATOL`` of the
+    fresh ones; whether they are bit-equal is printed (CUDA's
+    index-accumulating backward kernels may add in no fixed order)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import make_pipeline
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import Trainer
+    from repro_torch.tree import leaves
+    smoke = get_smoke_config(arch)
+    flags = ["--arch", arch, "--steps", "10", "--device", str(dev),
+             "--ckpt-every", "4"]
+    dirs = [tempfile.mkdtemp(prefix="chip_smoke_ckpt_") for _ in range(2)]
+
+    def run():
+        crashed = Trainer(smoke, make_pipeline(smoke, 64, 8, device=dev),
+                          ckpt_dir=dirs[0], ckpt_every=4, lr=3e-3,
+                          device=dev)
+        try:
+            crashed.train(10, fail_at=6)
+        except RuntimeError as e:
+            log(f"# launcher: {e}")
+        else:
+            fail("the trainer did not crash at step 6")
+        return (train.main(flags + ["--ckpt-dir", dirs[0]]),
+                train.main(flags + ["--ckpt-dir", dirs[1]]))
+
+    try:
+        (resumed, fresh), n = drive("train-launcher", run)
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
+    if any(n.values()):
+        fail(f"train-launcher: kernels launched: {n}")
+    if resumed.history[0]["step"] != 4 or resumed.step != 10 \
+            or fresh.step != 10:
+        fail(f"launcher: resumed from {resumed.history[0]['step']} to "
+             f"{resumed.step}, fresh to {fresh.step}")
+    diff = max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(leaves(resumed.params), leaves(fresh.params)))
+    same = all(torch.equal(a, b) for a, b in zip(leaves(resumed.params),
+                                                leaves(fresh.params)))
+    losses = [(h["loss"], g["loss"]) for h, g in zip(
+        resumed.history, fresh.history[4:])]
+    log(f"# launcher {smoke.name} on the card: crash at 6, resumed 4 -> 10; "
+        f"resumed vs fresh parameters max abs diff {diff:.3e} (bound "
+        f"{RESUME_ATOL}), bit-equal {same}; losses of steps 4-9 equal "
+        f"{all(a == b for a, b in losses)}")
+    if not diff <= RESUME_ATOL:
+        fail(f"resumed parameters off the fresh run's by {diff}")
+
+
+
 def sweep_phase(scratch) -> None:
     """Phase 17: the design-space sweep as a subprocess on the host (no
     CUDA device visible to it or its workers), then again on the same
@@ -2127,6 +2506,10 @@ def sweep_phase(scratch) -> None:
 
 
 def main() -> None:
+    # growable segments: llava's phase runs its float32 reference within
+    # 6 GiB of the card's 79 GiB beside 64 GiB of bf16 weights, where
+    # the fixed-size segments of earlier phases would leave fragments
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -2540,6 +2923,30 @@ def main() -> None:
     log(f"# phase kernels (musicgen, verify): "
         f"{time.perf_counter() - t0:.1f} s")
 
+    # 3i) llava-next-34b's heads (56/8 of 128, G = 7) for flash at the
+    #     text prompt (S = 512) and the vision prompt (S = 3,392), and
+    #     paged decode at the serve's step; from a generator of its own
+    t0 = time.perf_counter()
+    gen_3i = torch.Generator(device=dev)
+    gen_3i.manual_seed(22)
+    S_vis = 2880 + LLAVA_TEXT
+    errs = attention_at_heads(
+        torch, dev, gen_3i, fl_ops, dec_ops, flash_attention_ref,
+        HEADS_LLAVA, 128, [(1, 512, 512, 0), (1, S_vis, S_vis, 0),
+                           (1, 509, 509, 0), (2, 70, 300, 230),
+                           (1, 64, 576, 512)],
+        [(lengths_mixed, None), ([544] * 8, 73), ([544] * 8, 128)],
+        "llava's heads")
+    H, Hkv = HEADS_LLAVA
+    rows["flash"]["llava"] = {"max_abs_err": errs["flash"],
+                              **time_flash(512, H, Hkv, rng=gen_3i)}
+    rows["flash"]["llava_vision"] = time_flash(S_vis, H, Hkv, rng=gen_3i)
+    rows["paged"]["llava"] = {
+        "max_abs_err": errs["paged"],
+        **time_paged([544] * 8, nb=73, H=H, Hkv=Hkv, rng=gen_3i)}
+    fl_err, dec_err = max(fl_err, errs["flash"]), max(dec_err, errs["paged"])
+    log(f"# phase kernels (llava): {time.perf_counter() - t0:.1f} s")
+
     # 4) model: full-width qwen2.5-3b, kernel path vs plain path vs fp32
     cfg = get_config("qwen2.5-3b")
     weights = {"qwen": model_phase(torch, cfg, dev, gen)}
@@ -2766,6 +3173,29 @@ def main() -> None:
     t0 = time.perf_counter()
     speculative_phase(torch, dev, drive, get_config)
     log(f"# phase speculative: {time.perf_counter() - t0:.1f} s")
+
+    # 29) llava-next-34b: full width and depth, a vision prompt of 3,392
+    #     positions, three ways
+    t0 = time.perf_counter()
+    llava_model_phase(torch, dev, get_config)
+    log(f"# phase llava model: {time.perf_counter() - t0:.1f} s")
+
+    # 30) llava served disaggregated: phase 5's traffic (text prompts),
+    #     120 MiB handoffs
+    t0 = time.perf_counter()
+    paged_serve(serve, drive, sla, get_config, LLAVA, "serve-llava",
+                LLAVA_HANDOFF)
+    log(f"# phase llava serve: {time.perf_counter() - t0:.1f} s")
+
+    # 31) training at full width: qwen2.5-3b at full depth, 4-layer checks
+    t0 = time.perf_counter()
+    train_phase(torch, dev, drive, get_config)
+    log(f"# phase train: {time.perf_counter() - t0:.1f} s")
+
+    # 32) the training launcher and the checkpoint: crash, resume, fresh
+    t0 = time.perf_counter()
+    train_launcher_phase(torch, dev, drive, get_config)
+    log(f"# phase train launcher: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

@@ -4,9 +4,8 @@ The port's copy of ``repro.configs``: the same ten ids in the same order,
 each configuration field for field the reference's, and the same helpers
 (``all_configs``, ``get_shape``, ``cells``). Every id resolves here, so the
 simulator and the sweep price all ten; what the torch backend serves is
-for ``transformer.unported`` and the launcher to say (``llava-next-34b``
-waits for its vision frontend, the full-size ``kimi-k2-1t-a32b`` and
-``mistral-large-123b`` for sharding)."""
+for ``transformer.unported`` and the launcher to say (the full-size
+``kimi-k2-1t-a32b`` and ``mistral-large-123b`` wait for sharding)."""
 from __future__ import annotations
 
 import importlib

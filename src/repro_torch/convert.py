@@ -24,6 +24,13 @@ def _tensor(a, device, dtype: Optional[torch.dtype]):
     return t.to(dtype) if dtype is not None else t
 
 
+def _leaves(tree: Dict[str, Any], device, dtype):
+    """A top-level entry's nested dict (llava's ``vis_proj``: w1, w2),
+    each leaf converted, the nesting kept."""
+    return {k: (_leaves(v, device, dtype) if isinstance(v, dict)
+                else _tensor(v, device, dtype)) for k, v in tree.items()}
+
+
 def _layer(tree: Dict[str, Any], i: int, device, dtype):
     """Layer i of a stacked block dict; nested dicts (an MoE layer's
     ``moe``: router, wg, wu, wd, ...) keep their nesting."""
@@ -44,9 +51,8 @@ def from_reference(params: Dict[str, Any], *, device,
     an MoE router's fp32 in a bf16 config)."""
     device = torch.device(device)
     blocks = params["blocks"]
-    out: Dict[str, Any] = {
-        k: _tensor(v, device, dtype) for k, v in params.items()
-        if k != "blocks"}
+    out = _leaves({k: v for k, v in params.items() if k != "blocks"},
+                  device, dtype)
     out["blocks"] = [_layer(blocks, i, device, dtype)
                      for i in range(_num_layers(blocks))]
     return out

@@ -28,12 +28,14 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
     if causal:
         rows = q_offset + torch.arange(Sq, device=q.device)[:, None]
         cols = torch.arange(Skv, device=q.device)[None, :]
-        s = s.masked_fill(cols > rows, NEG_INF)
+        s.masked_fill_(cols > rows, NEG_INF)
         if window:
-            s = s.masked_fill(cols <= rows - window, NEG_INF)
+            s.masked_fill_(cols <= rows - window, NEG_INF)
+    # the score tensor is rewritten in place from here on: at llava's
+    # 56 heads and 3,392 positions it alone is 2.4 GiB beside 64 GiB of
+    # weights
     m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = torch.where(m > 0.5 * NEG_INF, p, torch.zeros_like(p))
+    p = s.sub_(m).exp_().masked_fill_(m <= 0.5 * NEG_INF, 0.0)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p / l, v.float())
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p.div_(l), v.float())
     return o.reshape(B, Sq, H, dh).to(q.dtype)

@@ -65,7 +65,10 @@ def wkv_chunked(r, k, v, logw, u, state, chunk: int = 32):
         cw_prev = cw - lw_c                               # cw_{j-1}
         y_inter = torch.einsum("blhn,bhnm->blhm", r_c * torch.exp(cw_prev),
                                S0)
-        diff = (cw_prev[:, :, None] - cw[:, None, :]).clamp(max=0.0)
+        # min(diff, 0) as jnp.minimum: a tie (diff == 0) splits the
+        # gradient evenly, where clamp would pass all of it
+        diff = torch.minimum(cw_prev[:, :, None] - cw[:, None, :],
+                             torch.zeros((), dtype=f32, device=r.device))
         a = torch.exp(diff) * tri[None, :, :, None, None]  # [B,j,i,H,N]
         s = torch.einsum("bjhn,bjihn,bihn->bjih", r_c, a, k_c)
         y_intra = torch.einsum("bjih,bihm->bjhm", s, v_c)

@@ -30,11 +30,12 @@ start-up, where the reference fails inside its chunked prefill; the sim
 backend serves both, as the reference's does.
 
 The torch backend also refuses, at start-up and before any parameter is
-allocated, ``llava-next-34b`` (its vision frontend comes with the
-frontends slice) and the full-size ``kimi-k2-1t-a32b`` and
-``mistral-large-123b``, whose bf16 weights exceed one card's memory
-(sharding comes with its own slice); their ``--smoke`` configurations
-serve, and ``--backend sim`` takes all ten ids at either size.
+allocated, the full-size ``kimi-k2-1t-a32b`` and ``mistral-large-123b``,
+whose bf16 weights exceed one card's memory (sharding comes with its own
+slice); their ``--smoke`` configurations serve, and ``--backend sim``
+takes all ten ids at either size. ``llava-next-34b`` serves on text
+prompts, as the reference's engine does (it feeds tokens only; patch
+embeddings enter through ``transformer.embed_inputs``).
 
 The full configuration runs on the card (``--device`` defaults to
 ``cuda``); ``--smoke`` takes the smoke-sized configuration and

@@ -152,7 +152,9 @@ def rwkv_block(p, x, state, cfg: ModelConfig, *, impl: str = "kernel"
     if impl == "kernel":
         y, _ = wkv(r, k, v, logw, u, state["s"], out_state=state["s"])
     else:
-        y, s_new = wkv_chunked(r, k, v, logw, u, state["s"])
+        # from a copy: the training forward differentiates through the
+        # chunked form, which keeps its input state for the backward pass
+        y, s_new = wkv_chunked(r, k, v, logw, u, state["s"].clone())
         state["s"].copy_(s_new)
     x = x + _group_norm_gate(p, y, g, dt)
 

@@ -1,5 +1,6 @@
 """The decoder of ``repro.models.transformer`` in PyTorch: the dense
-attention family and the attention-free RWKV-6 family.
+attention family, MoE, the attention-free RWKV-6 family and the hybrid
+family, with llava's vision frontend and the training loss.
 
 Parameters keep the reference's names and layouts (``wq`` [D,Hp,dh],
 ``wo`` [Hp,dh,D], ...), with ``params["blocks"]`` a list of per-layer
@@ -58,8 +59,23 @@ no paged layout and no chunked prefill, as in the reference.
 speculative-decoding verify pass, ``serving/speculative.py``); on the card
 it is the flash kernel at ``q_offset``.
 
-The frontends and a sliding window on the attn block come with later
-slices (``unported`` names which).
+The vision frontend (llava-next) projects precomputed patch embeddings
+[B,P,vision_dim] through a 2-layer GELU MLP (``params["vis_proj"]``) and
+prepends them to the token embeddings (``embed_inputs``). Every entry that
+takes a prompt (``prefill_full``, ``prefill_chunked``,
+``prefill_chunked_paged``, ``verify_chunk``, ``forward_hidden``) embeds
+through it, as the reference; decode steps embed tokens only. The serving
+engine, like the reference's, feeds tokens only, so a served llava runs
+its backbone on text.
+
+``train_loss`` is the reference's causal LM loss (chunked cross-entropy,
+the MoE loss terms, ``cfg.remat`` as ``torch.utils.checkpoint`` per
+layer). It runs no hand-written kernel: none has a backward, in the
+reference either (its training attention is XLA's blocked online softmax,
+``layers.causal_attention_xla``, here in plain, differentiable PyTorch).
+
+A sliding window on the attn block comes with a later slice
+(``unported`` says so).
 """
 from __future__ import annotations
 
@@ -67,6 +83,8 @@ import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                      decode_attention_paged)
@@ -87,13 +105,11 @@ def _check_impl(impl: str) -> None:
 
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
-    or None for the families it covers: dense attention, MoE, RWKV-6 and
-    the hybrid family (with or without its sliding window), with or
-    without kv-quant on the attn block."""
+    or None for the families it covers: dense attention (with the vision
+    frontend or none), MoE, RWKV-6 and the hybrid family (with or without
+    its sliding window), with or without kv-quant on the attn block."""
     if cfg.block not in ("attn", "rwkv", "hybrid"):
         return f"{cfg.block} blocks are no family of the reference"
-    if cfg.frontend:
-        return f"the {cfg.frontend} frontend comes with the frontends slice"
     if cfg.block == "rwkv":         # its own channel mix; no KV to quantize
         return None
     if cfg.kv_quant and cfg.block != "attn":
@@ -168,8 +184,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
     ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer; an MoE
     layer's FFN under ``p["moe"]``; a hybrid layer's SSM under
-    ``p["ssm"]`` with its two output norms), drawn
-    from a ``torch.Generator`` on ``device``. The
+    ``p["ssm"]`` with its two output norms; a vision configuration's
+    ``vis_proj`` w1 [vision_dim,D] and w2 [D,D] of std 1/sqrt(vision_dim)
+    and 1/sqrt(D)), drawn from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
     the same weights convert the JAX ones (``repro_torch.convert``)."""
     _check_family(cfg)
@@ -223,6 +240,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _normal(gen, (D, V), s, device, dt)
+    if cfg.frontend == "vision":
+        vd = cfg.vision_dim
+        params["vis_proj"] = {
+            "w1": _normal(gen, (vd, D), 1.0 / math.sqrt(vd), device, dt),
+            "w2": _normal(gen, (D, D), s, device, dt)}
     return params
 
 
@@ -232,6 +254,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
 
 def embed_tokens(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens]
+
+
+def embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, Any]):
+    """Returns ([B,S,D] embeddings, loss mask [B,S] or None). With the
+    vision frontend and ``inputs["patch_embeds"]`` [B,P,vision_dim], the
+    P projected patches come first and the mask is False over them: the
+    projection is ``gelu(pe @ w1) @ w2`` with the GELU in fp32 and its tanh
+    form (``jax.nn.gelu``'s default; ``F.gelu``'s is the erf form)."""
+    tok_emb = embed_tokens(params, cfg, inputs["tokens"])
+    if cfg.frontend != "vision" or "patch_embeds" not in inputs:
+        return tok_emb, None
+    w = params["vis_proj"]
+    pe = inputs["patch_embeds"].to(cfg.tdtype)
+    h = F.gelu((pe @ w["w1"]).float(), approximate="tanh").to(cfg.tdtype)
+    vis = h @ w["w2"]
+    B, P = vis.shape[:2]
+    mask = torch.cat([torch.zeros((B, P), dtype=torch.bool, device=vis.device),
+                      torch.ones(tok_emb.shape[:2], dtype=torch.bool,
+                                 device=vis.device)], dim=1)
+    return torch.cat([vis, tok_emb], dim=1), mask
 
 
 def _mask_padded_vocab(logits, cfg: ModelConfig):
@@ -474,17 +516,22 @@ def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
 # FFN and layer body
 
 
-def _ffn(p, x, cfg: ModelConfig):
+def _ffn_aux(p, x, cfg: ModelConfig):
     """The FFN sub-block with its residual: the dense SwiGLU, or the MoE
-    FFN where ``cfg.moe`` is set (its metrics dropped, as the reference's
-    serving paths drop them)."""
+    FFN where ``cfg.moe`` is set. Returns (x, the MoE metrics or {})."""
     xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if cfg.moe is not None:
-        y, _ = moe.moe_ffn(xn, p["moe"], cfg.moe,
-                           combine_fp32=cfg.moe_combine_fp32,
-                           expert_tp=cfg.moe_expert_tp)
-        return x + y
-    return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"])
+        y, aux = moe.moe_ffn(xn, p["moe"], cfg.moe,
+                             combine_fp32=cfg.moe_combine_fp32,
+                             expert_tp=cfg.moe_expert_tp)
+        return x + y, aux
+    return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"]), {}
+
+
+def _ffn(p, x, cfg: ModelConfig):
+    """``_ffn_aux`` with the MoE metrics dropped, as the reference's
+    serving paths drop them."""
+    return _ffn_aux(p, x, cfg)[0]
 
 
 def _hybrid_mix(p, attn_out, ssm_out, cfg: ModelConfig):
@@ -534,7 +581,8 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
 
 def prefill_full(params, cfg: ModelConfig, inputs, *,
                  capacity: Optional[int] = None, impl: str = "kernel"):
-    """Single-shot prefill. inputs: {"tokens": [B,S] int}. Returns (logits
+    """Single-shot prefill. inputs: {"tokens": [B,S] int} (and a vision
+    configuration's ``patch_embeds``, prepended). Returns (logits
     [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]}); for RWKV
     the cache is the state after the prompt, and ``capacity`` is unused;
     a hybrid cache is S rows wide (W, the ring, under a sliding window) and
@@ -542,7 +590,7 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
     family grows to ``capacity`` (its int8 values and their scales alike
     under kv-quant)."""
     _check_family(cfg)
-    x = embed_tokens(params, cfg, inputs["tokens"])
+    x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
     entries = []
@@ -653,7 +701,7 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
     cache); that cache is written in place. Returns (logits [B,Vp] fp32 at
     the last input position, cache with ``pos`` = the input length)."""
     _check_attn(cfg, "chunked prefill")
-    x = embed_tokens(params, cfg, inputs["tokens"])
+    x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
     if (S - start) % chunk_size or start % chunk_size:
@@ -776,7 +824,7 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
     branch), ``"plain"`` through the mask-based core over the whole window
     (its ``"xla"`` branch). Returns (logits [1,Vp] fp32, pool)."""
     _check_attn(cfg, "chunked prefill")
-    x = embed_tokens(params, cfg, inputs["tokens"])
+    x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     Bs = pool["k"].shape[1]
     Hkvp, dh = cfg.padded_kv_heads, cfg.dh
@@ -835,7 +883,7 @@ def verify_chunk(params, cfg: ModelConfig, cache, tokens, start: int,
     ``q_offset=start``. The attention family with a bf16 cache only, as
     the reference asserts."""
     _check_attn(cfg, "the verify pass")
-    x = embed_tokens(params, cfg, tokens)
+    x, _ = embed_inputs(params, cfg, {"tokens": tokens})
     B, k, D = x.shape
     for i, p in enumerate(params["blocks"]):
         xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
@@ -846,3 +894,151 @@ def verify_chunk(params, cfg: ModelConfig, cache, tokens, start: int,
     logits = _logits(params, cfg, x.reshape(B * k, D)).reshape(B, k, -1)
     return logits, {**cache, "pos": torch.full_like(cache["pos"],
                                                     start + k)}
+
+
+# ---------------------------------------------------------------------------
+# Training: the full-sequence causal LM loss
+
+
+def _zero_aux(device):
+    return {k: torch.zeros((), dtype=f32, device=device)
+            for k in ("moe_aux_loss", "moe_z_loss", "moe_dropped")}
+
+
+def _pad_aux(aux, device):
+    out = _zero_aux(device)
+    out.update(aux)
+    return out
+
+
+def _attn_train(p, xn, cfg: ModelConfig):
+    """The training forward's attention: the reference's ``attn_full``
+    with ``impl="xla"`` — K/V expanded to the query heads, then the
+    blocked causal online softmax (banded where the config has a
+    sliding window), all differentiable PyTorch."""
+    S = xn.shape[1]
+    q, k, v = _qkv(p, xn, cfg, torch.arange(S, device=xn.device)[None, :])
+    hmap = _head_map(cfg, xn.device)
+    kr, vr = L.expand_kv(k, hmap), L.expand_kv(v, hmap)
+    if cfg.sliding_window:
+        o = L.sliding_window_attention_xla(q, kr, vr, cfg.sliding_window)
+    else:
+        o = L.causal_attention_xla(q, kr, vr)
+    return _attn_out(p, o.to(xn.dtype), cfg)
+
+
+def _layer_train(p, x, cfg: ModelConfig):
+    """One layer of the training forward: (x, MoE metrics padded with
+    zeros). An RWKV layer starts from the zero state, as a hybrid layer's
+    SSM does."""
+    if cfg.block == "rwkv":
+        state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
+        x, _ = rwkv6.rwkv_block(p, x, state, cfg, impl="plain")
+        return x, _zero_aux(x.device)
+    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    y = _attn_train(p, xn, cfg)
+    if cfg.block == "hybrid":
+        ssm_out, _ = ssm.ssm_apply(
+            p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
+                                             device=x.device), cfg)
+        y = _hybrid_mix(p, y, ssm_out, cfg)
+    x, aux = _ffn_aux(p, x + y, cfg)
+    return x, _pad_aux(aux, x.device)
+
+
+def forward_hidden(params, cfg: ModelConfig, inputs):
+    """Training-mode forward to the final hidden states. Returns (x
+    [B,S,D], the frontend's loss mask or None, the MoE metrics averaged
+    over the layers). With ``cfg.remat`` each layer is recomputed in the
+    backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its scan body)."""
+    _check_family(cfg)
+    x, mask = embed_inputs(params, cfg, inputs)
+    aux = _zero_aux(x.device)
+    for p in params["blocks"]:
+        if cfg.remat:
+            x, a = checkpoint(_layer_train, p, x, cfg, use_reentrant=False)
+        else:
+            x, a = _layer_train(p, x, cfg)
+        aux = {k: aux[k] + a[k] for k in aux}
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, mask, {k: v / cfg.num_layers for k, v in aux.items()}
+
+
+class _MatmulF32(torch.autograd.Function):
+    """x [T,D] @ w [D,V] in bf16 on the card with an fp32 product (the
+    reference's ``preferred_element_type=f32``); the backward's products
+    take the fp32 cotangent rounded to w's dtype, as mixed-precision
+    training does, and accumulate in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=f32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        return g @ w.T, torch.mm(x.T, g, out_dtype=f32).to(w.dtype)
+
+
+def _chunk_loss(xc, head, lc, mc, cfg: Optional[ModelConfig]):
+    """Summed CE of one chunk: fp32 logits [B,Sc,V] (padded vocabulary
+    masked), their logsumexp minus the label's logit, times the mask."""
+    B, Sc, D = xc.shape
+    if xc.is_cuda and xc.dtype != f32:
+        logits = _MatmulF32.apply(xc.reshape(B * Sc, D), head)
+    else:
+        logits = xc.reshape(B * Sc, D).float() @ head.float()
+    logits = logits.reshape(B, Sc, -1)
+    if cfg is not None:
+        logits = _mask_padded_vocab(logits, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    return ((lse - ll) * mc).sum()
+
+
+def chunked_cross_entropy(x, lm_head, labels, mask, chunk: int,
+                          cfg: Optional[ModelConfig] = None):
+    """Mean CE over the masked positions, chunk by chunk along S so the
+    [B,S,V] logits are never whole: each chunk's loss is recomputed in the
+    backward pass (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``). A ragged tail is padded with masked positions."""
+    S = x.shape[1]
+    Sc = min(chunk, S)
+    pad = (-S) % Sc
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    maskf = mask.to(f32)
+    total = torch.zeros((), dtype=f32, device=x.device)
+    for lo in range(0, S + pad, Sc):
+        total = total + checkpoint(
+            _chunk_loss, x[:, lo:lo + Sc], lm_head, labels[:, lo:lo + Sc],
+            maskf[:, lo:lo + Sc], cfg, use_reentrant=False)
+    return total / maskf.sum().clamp(min=1.0)
+
+
+def train_loss(params, cfg: ModelConfig, batch):
+    """batch: {"tokens": [B,S], "labels": [B,S], optional "loss_mask"
+    [B,S] bool and, for a vision configuration, "patch_embeds" (then
+    tokens are [B,S-P] and the P patch positions are never scored)}.
+    Returns (loss, metrics {"ce", "moe_aux_loss", "moe_z_loss",
+    "moe_dropped"}); an MoE configuration adds 0.01 x the aux loss and
+    1e-3 x the z loss to the CE. No hand-written kernel runs."""
+    x, vis_mask, aux = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.bool, device=x.device)
+    if vis_mask is not None:
+        mask = mask & vis_mask
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ce = chunked_cross_entropy(x, head, labels, mask, cfg.logits_chunk,
+                               cfg=cfg)
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["moe_aux_loss"] + 1e-3 * aux["moe_z_loss"]
+    return loss, {"ce": ce, **aux}

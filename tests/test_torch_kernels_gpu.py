@@ -295,6 +295,26 @@ def test_paged_kernel_at_the_14b_heads(cuda, H, Hkv, nb):
     assert torch.equal(out, out2)
 
 
+# llava-next-34b's heads: 56/8 of 128 (G = 7: 9 positions in a tile's 64
+# rows, one row dead), at its text prompt (S = 512) and its vision prompt
+# (2,880 patch embeddings + 512 tokens = 3,392 positions)
+HEADS_LLAVA = (56, 8)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,off", [
+    (1, 512, 512, 0), (1, 3392, 3392, 0), (1, 509, 509, 0),
+    (2, 70, 300, 230), (1, 64, 576, 512)])
+def test_flash_kernel_at_llavas_heads(cuda, B, Sq, Skv, off):
+    test_flash_kernel_at_the_14b_heads(cuda, *HEADS_LLAVA, B, Sq, Skv, True,
+                                       off)
+
+
+@pytest.mark.parametrize("nb", [73, 128])
+def test_paged_kernel_at_llavas_heads(cuda, nb):
+    """The 14B test's lengths and poisoned blocks at G = 7."""
+    test_paged_kernel_at_the_14b_heads(cuda, *HEADS_LLAVA, nb)
+
+
 def test_paged_kernel_garbage_block_immunity(cuda):
     """Trash-block contents and positions past a length must not leak:
     the kernel never reads them, so the output is bit-identical."""

@@ -319,27 +319,32 @@ def test_launcher_refuses_models_larger_than_one_card(arch, monkeypatch,
     assert "sharding slice" in err and "80 GiB" in err
 
 
-def test_launcher_refuses_llava_naming_the_frontends_slice(monkeypatch,
-                                                           capsys):
+def test_launcher_refuses_llava_naming_the_frontends_slice(capsys):
+    """Refused no longer: with its vision frontend ported, the start-up
+    check passes llava-next-34b at both sizes (the full one's 68.9 GB of
+    bf16 weights fit one card's 80 GiB), and its smoke configuration
+    serves text prompts on the CPU, as the reference's engine does."""
+    import argparse
+
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
-
-    def no_init(*args, **kw):
-        raise AssertionError("parameters allocated")
-
-    monkeypatch.setattr(transformer, "init_params", no_init)
-    for size in ([], ["--smoke"]):
-        with pytest.raises(SystemExit):
-            serve.main(["--arch", "llava-next-34b", "--device", "cpu",
-                        *size])
-        assert "frontends slice" in capsys.readouterr().err
+    args = argparse.Namespace(mode="disagg", scheduler="fcfs")
+    for cfg in (get_config("llava-next-34b"),
+                get_smoke_config("llava-next-34b")):
+        assert serve.torch_refusal(cfg, args) is None
+    rec = serve.main(["--arch", "llava-next-34b", "--smoke", "--device",
+                      "cpu", "--requests", "2", "--isl", "16", "--osl", "4",
+                      "--rate-matcher", "none"])
+    assert rec["completed"] == 2 and rec["arch"] == "llava-next-34b-smoke"
+    assert "frontends slice" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mistral-large-123b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "llava-next-34b"])
 def test_launcher_serves_the_new_smoke_configurations_on_cpu(arch):
-    """``--smoke`` serves kimi's (an MoE with a shared expert), mistral's
-    and musicgen's smoke configurations disaggregated on the CPU."""
+    """``--smoke`` serves kimi's (an MoE with a shared expert), mistral's,
+    musicgen's and llava's (text prompts) smoke configurations
+    disaggregated on the CPU."""
     rec = _serve("--arch", arch, "--requests", "3", "--isl", "16", "--osl",
                  "4", "--rate-matcher", "none")
     from repro_torch.configs import get_smoke_config

@@ -106,8 +106,8 @@ def test_the_new_configurations_figures():
     assert (mg.num_layers, mg.num_heads, mg.num_kv_heads, mg.dh, mg.q_group,
             mg.vocab_size, mg.frontend) == (48, 32, 32, 64, 1, 2048, None)
     assert 512 * mg.kv_bytes_per_token() == 201_326_592 == 192 * 2**20
-    assert "frontends slice" in T.unported(C.get_config("llava-next-34b"))
-    for arch in ("musicgen-large", "mistral-large-123b", "kimi-k2-1t-a32b"):
+    for arch in ("musicgen-large", "mistral-large-123b", "kimi-k2-1t-a32b",
+                 "llava-next-34b"):
         assert T.unported(C.get_config(arch)) is None
         assert T.unported(C.get_smoke_config(arch)) is None
 
