@@ -199,6 +199,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      from its step-4 checkpoint to step 10, a fresh launcher run to 10;
      the resumed parameters within 2e-5 of the fresh ones, bit-equality
      printed.
+ 33. the dry run on the host: ``python -m repro_torch.launch.dryrun`` for
+     one serve cell per family on the 16x16 mesh (a fake process group of
+     512 ranks, no card): qwen2.5-3b decode_32k, granite-moe-1b-a400m
+     prefill_32k, rwkv6-1.6b long_500k, hymba-1.5b decode_32k,
+     kimi-k2-1t-a32b decode_32k (``--variant etp``) and mistral-large-123b
+     decode_32k, one process each, all at once; fails unless each is ``ok``
+     with the JAX package's per-device argument bytes
+     (``DRYRUN_ARG_BYTES``); prints each one's per-device peak and
+     collective counts;
+ 34. the dry run against the card: qwen2.5-3b at full width and depth,
+     random bf16 weights from seed 0, a prefill of 2 x 4,096 and a dense
+     decode step of 16 slots over 8,192 (4,096 cached): the dry run's
+     prediction on a fake 1x1 mesh (a child process), then the step it
+     traced (``impl="xla"``, the reference's lowering) on the card, the
+     plain path's peak beside it; fails unless the argument bytes equal
+     those on the card exactly and the predicted peak is at least 0.9 of
+     the measured one (the ratio printed); then the kernel path, counted
+     (flash exactly 36 launches for the prefill, dense decode exactly 36
+     for the step, nothing else), held by phase 4's rule against a
+     float32 upcast, its peak printed, and run again under
+     ``AttentionTap`` (each kernel call against its plain version);
+     last, the plain prefill on a one-rank NCCL mesh
+     (``make_host_mesh``, DTensor parameters), whose logits must be
+     bit-equal to the plain prefill's without a mesh.
 
 Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
 16/8 heads) against their plain versions at the serve's shapes and their
@@ -219,7 +243,7 @@ beside the reference's scatter-add combine (``index_add_``) relaunched
 as often, and fails unless each bf16 path run twice gives bit-equal
 logits.
 
-Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28, 30-32) runs with
+Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28, 30-32, 34) runs with
 every kernel's launch count set to 0 just before it and read just after;
 each phase prints its seconds.
 
@@ -316,6 +340,18 @@ SWEEP_ARGS = ["--models", "llama-3.1-8b", "qwen3-14b", "phi3-medium-14b",
               "256", "--reuse", "0.0", "0.5", "--modes", "disagg", "coloc",
               "--max-chips", "64", "--simulate", "--workers", "4", "--quiet"]
 SWEEP_HASH, SWEEP_POINTS, SWEEP_CELLS = "4944b71631008786", 695_418, 240
+# phase 33's dry-run cells on the 16x16 mesh, one serve cell per family,
+# and each one's per-device argument bytes (params, cache, inputs): the JAX
+# package's own ``build_cell`` gives these (tests/test_torch_dryrun.py
+# derives them there)
+DRYRUN_ARG_BYTES = {
+    ("qwen2.5-3b", "decode_32k", "base"): 1_099_712_032,
+    ("granite-moe-1b-a400m", "prefill_32k", "base"): 223_713_280,
+    ("rwkv6-1.6b", "long_500k", "base"): 212_176_904,
+    ("hymba-1.5b", "decode_32k", "base"): 456_981_664,
+    ("kimi-k2-1t-a32b", "decode_32k", "etp"): 16_142_232_096,
+    ("mistral-large-123b", "decode_32k", "base"): 7_127_327_264,
+}
 
 
 def fail(msg: str) -> None:
@@ -2505,6 +2541,263 @@ def sweep_phase(scratch) -> None:
         f"cells cached in {rerun['elapsed_s']} s")
 
 
+def host_env() -> dict:
+    """A child process's environment: the repository's sources, no card."""
+    return dict(os.environ, PYTHONPATH=SRC, CUDA_VISIBLE_DEVICES="")
+
+
+def dryrun_host_phase() -> None:
+    """Phase 33: ``python -m repro_torch.launch.dryrun`` on this host, one
+    serve cell per family on the 16x16 mesh (a fake process group of 512
+    ranks; the card is not touched), each in a process of its own, all at
+    once. Fails unless every cell is ``ok`` with the JAX package's
+    per-device argument bytes (``DRYRUN_ARG_BYTES``); prints each one's
+    per-device peak, collectives and trace seconds."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = {}
+    for arch, shape, variant in DRYRUN_ARG_BYTES:
+        procs[(arch, shape, variant)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--variant",
+             variant, "--out", out, "--force"], env=host_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    failed = []
+    for cell, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+        arch, shape, variant = cell
+        tag = f"{arch}__{shape}__single" + (
+            f"__{variant}" if variant != "base" else "")
+        path = os.path.join(out, tag + ".json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            failed.append(f"{tag}: exit {proc.returncode} {err[-400:]}")
+            continue
+        with open(path) as f:
+            rec = json.load(f)
+        mem = rec["memory"]
+        log(f"# dryrun {tag}: {rec['status']}, argument "
+            f"{mem['argument_bytes']:,} B, peak/device "
+            f"{mem['peak_per_device'] / 2**30:.3f} GiB, collectives "
+            + json.dumps({k: v["count"] for k, v in
+                          rec["collectives"].items()})
+            + f", traced in {rec['compile_s']} s")
+        want = DRYRUN_ARG_BYTES[cell]
+        if rec["status"] != "ok" or mem["argument_bytes"] != want:
+            failed.append(f"{tag}: {rec['status']}, argument bytes "
+                          f"{mem['argument_bytes']} against {want}")
+    shutil.rmtree(out, ignore_errors=True)
+    if failed:
+        fail("dry run: " + "; ".join(failed))
+
+
+# phase 34's cells of the dry run, sized to one card: qwen2.5-3b prefill of
+# 2 x 4,096 and a dense decode step of 16 slots over a capacity of 8,192
+DRYRUN_CARD_CELLS = {"prefill": (4096, 2), "decode": (8192, 16)}
+# a dry run that undercounts says a sharding fits when it does not: its
+# peak must reach this share of the card's
+DRYRUN_PEAK_FLOOR = 0.9
+
+_DRYRUN_CARD = r"""
+import json, sys, tempfile
+from repro_torch.configs import get_config
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.mesh import make_fake_mesh
+from repro_torch.models.config import ShapeConfig
+mesh = make_fake_mesh((1, 1), ("data", "model"))
+cfg = get_config("qwen2.5-3b")
+out = {}
+with tempfile.TemporaryDirectory() as tmp:
+    for kind, (S, B) in json.loads(sys.argv[1]).items():
+        out[kind] = run_cell(cfg.name, kind + "_card", "1x1", tmp,
+                             force=True, cfg=cfg,
+                             shape=ShapeConfig(kind + "_card", S, B, kind),
+                             mesh=mesh)
+print(json.dumps(out))
+"""
+
+
+def storage_bytes(torch, *trees) -> int:
+    """Bytes of the distinct storages under nested dicts and lists."""
+    seen = {}
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+
+    for tree in trees:
+        walk(tree)
+    return sum(seen.values())
+
+
+def dryrun_card_phase(torch, dev, drive, get_config) -> None:
+    """Phase 34: the dry run's prediction against the H100.
+
+    qwen2.5-3b at full width and depth, random bf16 weights from seed 0.
+    For each of ``DRYRUN_CARD_CELLS``: the dry run on a fake 1x1 mesh (a
+    child process, as a process keeps one default group); the step it
+    traced (``impl="xla"``: the reference's lowering, a prompt's attention
+    the blocked online softmax) on the card between resets of the peak
+    (``torch.cuda.max_memory_allocated``); fails unless the argument bytes
+    equal those of the params, inputs and cache on the card exactly and
+    the predicted peak is at least ``DRYRUN_PEAK_FLOOR`` of the measured
+    one. The plain path's peak is printed beside it (its prefill holds
+    the whole score tensor). Then the kernel path between launch counters
+    (flash exactly once per layer per prefill, kernel 3 once per layer
+    per decode step), its logits held to the plain path's by phase 4's
+    rule against a float32 upcast, its peak printed beside the
+    prediction; and once more outside the counters under
+    ``AttentionTap``, which holds each flash and kernel 3 call to its
+    plain version on the same inputs at ``KERNEL_ATOL``. Last, the plain
+    prefill under ``use_mesh(make_host_mesh())``: a one-rank NCCL group,
+    DTensor parameters on the card, logits bit-equal to the plain prefill
+    without a mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import placements_for, use_mesh
+    from repro_torch.parallel.specs import distribute_params
+    from repro_torch.serving.backends import init_torch_params
+
+    child = subprocess.run(
+        [sys.executable, "-c", _DRYRUN_CARD, json.dumps(DRYRUN_CARD_CELLS)],
+        env=host_env(), capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        fail(f"phase 34 dry run: {child.stderr[-2000:]}")
+    pred = json.loads(child.stdout.strip().splitlines()[-1])
+    for kind, rec in pred.items():
+        if rec["status"] != "ok":
+            fail(f"phase 34 dry run {kind}: {rec.get('error')}")
+        log(f"# dryrun card-cell {kind}: traced in {rec['compile_s']} s, "
+            "memory " + json.dumps(rec["memory"]))
+
+    cfg = get_config("qwen2.5-3b")
+    Lr = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_torch_params(cfg, 0, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(34)
+    S, B = DRYRUN_CARD_CELLS["prefill"]
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev,
+                         dtype=torch.int32)
+    C, Bd = DRYRUN_CARD_CELLS["decode"]
+    caches = [T.init_cache(cfg, Bd, C, device=dev) for _ in range(2)]
+    for key in ("k", "v"):      # 4,096 cached positions a slot, then one
+        caches[0][key].normal_(generator=g)
+    caches[0]["pos"].fill_(C // 2)
+    caches[1] = {k: v.clone() for k, v in caches[0].items()}
+    dtoks = torch.randint(0, cfg.vocab_size, (Bd,), generator=g, device=dev,
+                          dtype=torch.int32)
+    args = {"prefill": (params, {"tokens": toks}),
+            "decode": (params, caches[0], dtoks)}
+
+    def step(kind, impl, cache):
+        if kind == "prefill":
+            return T.prefill_full(params, cfg, {"tokens": toks}, impl=impl)
+        cache["pos"].fill_(C // 2)      # a decode step writes row C // 2
+        return T.decode_step(params, cfg, cache, dtoks, impl=impl)
+
+    def measure(fn):
+        """(the step's output, its peak: the arguments' bytes plus the
+        most it allocated above them)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - before
+
+    logits = {}
+    for kind in ("prefill", "decode"):
+        rec = pred[kind]["memory"]
+        arg = storage_bytes(torch, *args[kind])
+        out, above = measure(lambda: step(kind, "xla", caches[0]))
+        del out
+        measured = arg + above
+        ratio = rec["peak_per_device"] / measured
+        out, above = measure(lambda: step(kind, "plain", caches[0]))
+        logits[kind, "plain"] = out[0]
+        del out
+        log(f"# dryrun card {kind}: argument bytes predicted "
+            f"{rec['argument_bytes']:,} on the card {arg:,}; peak predicted "
+            f"{rec['peak_per_device'] / 2**30:.3f} GiB, the traced step "
+            f"(xla) on the card {measured / 2**30:.3f} GiB, ratio "
+            f"{ratio:.3f}; the plain path {(arg + above) / 2**30:.3f} GiB")
+        if rec["argument_bytes"] != arg:
+            fail(f"phase 34 {kind}: argument bytes {rec['argument_bytes']} "
+                 f"predicted, {arg} on the card")
+        if ratio < DRYRUN_PEAK_FLOOR:
+            fail(f"phase 34 {kind}: predicted peak {ratio:.3f} of the "
+                 "card's")
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            out, n = drive(f"dryrun-card-{kind}",
+                           lambda: step(kind, "kernel", caches[1]))
+        kpeak = arg + torch.cuda.max_memory_allocated() - before
+        logits[kind, "kernel"] = out[0]
+        want = {"prefill": {"flash": Lr}, "decode": {"dense": Lr}}[kind]
+        others = {k: v for k, v in n.items() if k not in want}
+        if any(n[k] != v for k, v in want.items()) or any(others.values()):
+            fail(f"phase 34 {kind}: launches {n}, want {want} and no other")
+        log(f"# dryrun card {kind}: kernel path peak {kpeak / 2**30:.3f} "
+            f"GiB beside the prediction's "
+            f"{rec['peak_per_device'] / 2**30:.3f}")
+        del out
+        with torch.inference_mode(), AttentionTap() as attn:
+            step(kind, "kernel", caches[1])
+        attn.check(f"dryrun-card {kind}")
+
+    # the float32 reference, weights upcast a block at a time
+    c32, p32 = cfg.replace(dtype="float32"), upcast(params)
+    cache32 = {k: (v.float() if v.is_floating_point() else v.clone())
+               for k, v in caches[0].items()}
+    cache32["pos"].fill_(C // 2)
+    with torch.inference_mode():
+        lr_pre, _ = T.prefill_full(p32, c32, {"tokens": toks}, impl="plain")
+        lr_dec, _ = T.decode_step(p32, c32, cache32, dtoks, impl="plain")
+    del cache32
+    hold(torch, "dryrun-card prefill", Lr, logits["prefill", "kernel"],
+         logits["prefill", "plain"], lr_pre, cfg.vocab_size)
+    hold(torch, "dryrun-card decode", Lr, logits["decode", "kernel"],
+         logits["decode", "plain"], lr_dec, cfg.vocab_size)
+
+    # the plain prefill on a one-rank mesh of the card
+    mesh = make_host_mesh()
+    try:
+        dparams = distribute_params(params, cfg, mesh)
+        with torch.inference_mode(), use_mesh(mesh):
+            dt = distribute_tensor(toks, mesh,
+                                   placements_for(toks.shape, "dp", None))
+            lm, _ = T.prefill_full(dparams, cfg, {"tokens": dt},
+                                   impl="plain")
+            lm = lm.full_tensor()
+    finally:
+        dist.destroy_process_group()
+    equal = torch.equal(lm, logits["prefill", "plain"])
+    log(f"# dryrun card mesh {tuple(mesh.mesh.shape)} "
+        f"({mesh.device_type}): plain prefill logits bit-equal to no "
+        f"mesh: {equal}")
+    if not equal:
+        fail("phase 34: the one-rank mesh's prefill differs from no mesh's")
+
+
 def main() -> None:
     # growable segments: llava's phase runs its float32 reference within
     # 6 GiB of the card's 79 GiB beside 64 GiB of bf16 weights, where
@@ -3196,6 +3489,16 @@ def main() -> None:
     t0 = time.perf_counter()
     train_launcher_phase(torch, dev, drive, get_config)
     log(f"# phase train launcher: {time.perf_counter() - t0:.1f} s")
+
+    # 33) the dry run on this host: one serve cell per family, 16x16 mesh
+    t0 = time.perf_counter()
+    dryrun_host_phase()
+    log(f"# phase dryrun host: {time.perf_counter() - t0:.1f} s")
+
+    # 34) the dry run's per-device prediction against the card
+    t0 = time.perf_counter()
+    dryrun_card_phase(torch, dev, drive, get_config)
+    log(f"# phase dryrun card: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

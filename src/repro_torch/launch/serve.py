@@ -354,9 +354,11 @@ def torch_refusal(cfg, args) -> Optional[str]:
     if weights > GPU_H100.hbm_cap:
         return (f"{cfg.param_count() / 1e9:.1f} B parameters, "
                 f"{weights / 1e9:.0f} GB of bf16 weights, exceed one card's "
-                f"{GPU_H100.hbm_cap / 2**30:.0f} GiB; sharding them comes "
-                "with the sharding slice (--smoke serves the smoke "
-                "configuration, --backend sim the full one)")
+                f"{GPU_H100.hbm_cap / 2**30:.0f} GiB; `python -m "
+                f"repro_torch.launch.dryrun --arch {cfg.name}` shows their "
+                "sharding on the production meshes, and serving installs "
+                "no mesh, as the reference's does (--smoke serves the "
+                "smoke configuration, --backend sim the full one)")
     if cfg.block != "attn" and (args.mode == "coloc"
                                 or args.scheduler == "prefix-affinity"):
         return (f"{cfg.block} prompts are never chunked, so --mode coloc "

@@ -3,7 +3,9 @@ reference's attention functions.
 
 PyTorch counterparts of ``repro.models.layers``. Serving attention lives in
 ``repro_torch.kernels`` (hand-written CUDA kernels, each beside its plain
-PyTorch version); the model picks one per call with ``impl``. The
+PyTorch version); the model picks one per call with ``impl``. Under a
+device mesh (``parallel.sharding.use_mesh``) the GQA expansion and the
+SwiGLU constrain their outputs to the reference's layouts. The
 attention functions here are the reference's XLA ones in plain,
 differentiable PyTorch — the training forward's, since no kernel has a
 backward: ``causal_attention_xla`` (exact block-causal online softmax,
@@ -21,6 +23,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import (constrain, current_mesh,
+                                           mesh_dims, pin, placements_for)
 
 f32 = torch.float32
 # finite, as in the reference: a fully masked row gives exp(NEG_INF - NEG_INF)
@@ -59,14 +66,40 @@ def expand_kv(k: torch.Tensor, head_map: torch.Tensor):
     (padded q heads map to kv head 0; their output is masked later)."""
     if head_map.shape[0] == k.shape[2]:
         return k
-    return torch.index_select(k, 2, head_map)
+    out = torch.index_select(k, 2, head_map)
+    return constrain(out, "dp", None, "tp", None)
+
+
+def linear(x, w):
+    """``x @ w``. Under a mesh the product's gradient comes back laid out
+    as the product is (``pin``): left free, DTensor's backward may split
+    the sequence over the model axis, a layout the product's
+    ``[B*S, D]`` view cannot take."""
+    return pin(x @ w)
+
+
+def split_heads(t, H: int, dh: int):
+    """[..., H*dh] -> [..., H, dh] (the leading dim the batch). Under a
+    mesh the flat dim is first laid out in whole heads (over tp where H
+    divides it, else replicated): DTensor cannot split a dim sharded
+    across a head."""
+    lead = t.shape[:-1]
+    if current_mesh() is not None and isinstance(t, DTensor):
+        mid = (None,) * (len(lead) - 1)
+        whole = mesh_dims(current_mesh(), placements_for(
+            tuple(lead) + (H, dh), "dp", *mid, "tp", None), len(lead))
+        t = constrain(t, "dp", *mid, "tp" if whole else None)
+        # (pinned: the gradient must come back in whole heads too)
+        return pin(t.reshape(tuple(lead) + (H, dh)))
+    return t.reshape(tuple(lead) + (H, dh))
 
 
 def swiglu(x, wi_gate, wi_up, wo):
-    h = x @ wi_gate
-    u = x @ wi_up
+    h = linear(x, wi_gate)
+    u = linear(x, wi_up)
     h = F.silu(h.to(f32)).to(x.dtype) * u
-    return h @ wo
+    h = constrain(h, "dp", None, "tp")
+    return constrain(linear(h, wo), "dp", None, None)
 
 
 def repeat_kv(k: torch.Tensor, num_heads: int):
@@ -74,7 +107,8 @@ def repeat_kv(k: torch.Tensor, num_heads: int):
     Hkv = k.shape[2]
     if Hkv == num_heads:
         return k
-    return torch.repeat_interleave(k, num_heads // Hkv, dim=2)
+    k = torch.repeat_interleave(k, num_heads // Hkv, dim=2)
+    return constrain(k, "dp", None, "tp", None)
 
 
 # ---------------------------------------------------------------------------

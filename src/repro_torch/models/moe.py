@@ -10,10 +10,25 @@ gated outputs are summed back in fp32.
 
 The reference computes all of this outside any Pallas kernel (XLA's
 gathers, einsums and scatter), so the port does too: ``index_select``,
-``torch.bmm`` and a gather. Its ``shard_map`` and ``expert_tp``
-branches act only under a device mesh, which comes with the sharding
-slice; without one the reference runs ``_local_moe`` on every token, as
-here.
+``torch.bmm`` and a gather. Without a mesh ``_local_moe`` runs on every
+token. Under a device mesh (``parallel.sharding.use_mesh``) ``moe_ffn``
+takes the reference's two mesh branches, on the same conditions, each
+rank running ``_local_moe`` on its own shards (``shard_map``):
+
+- ``shard_map`` (tokens sharded over the data axes): each rank routes its
+  data shard's tokens over all experts, with the capacity of that shard's
+  token count, and runs its E/ep experts (``e_off`` from its coordinate
+  on the model axis); its partial [T, D] is summed over the model axis
+  and the metrics are averaged (``dropped`` summed) over the data axes;
+- ``expert_tp`` (tokens replicated, expert d_ff over the data axes as
+  well): each rank runs its experts' d_ff slice on every token, and the
+  partials are summed over every axis.
+
+The reference ``psum``s inside its ``shard_map``; here a rank's partials
+leave as ``Partial`` DTensors and are summed (in fp32 under
+``combine_fp32``) before the cast, as there. Capacity per data shard
+means a sharded run differs from an unsharded one by design: its
+counterpart is the reference's ``shard_map`` run on the same mesh.
 
 No host synchronisation: C is computed in Python from the token count,
 and the metrics (``moe_aux_loss``, ``moe_z_loss``, ``moe_dropped``) stay
@@ -35,9 +50,15 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models import layers as L
 from repro_torch.models.config import MoEConfig
+from repro_torch.parallel.sharding import (constrain, current_mesh,
+                                           current_rules, mesh_coordinate,
+                                           mesh_dims, mesh_shape,
+                                           placements_for,
+                                           shard_map_placements)
 
 f32 = torch.float32
 
@@ -74,11 +95,14 @@ def _route(x, router_w, cfg: MoEConfig):
 
 
 def _local_moe(x, router_w, wg, wu, wd, *, cfg: MoEConfig,
-               combine_fp32: bool = True):
-    """x: [T, D] tokens; wg/wu: [E, D, F], wd: [E, F, D]. Returns (y [T,D]
-    in x's dtype, metrics)."""
+               combine_fp32: bool = True, e_off: int = 0):
+    """x: [T, D] tokens; wg/wu: [E_local, D, F], wd: [E_local, F, D], the
+    experts [e_off, e_off + E_local) (all of them without a mesh). Returns
+    (y [T,D] over those experts, in fp32 under ``combine_fp32``, else in
+    x's dtype; metrics)."""
     T, D = x.shape
     E = cfg.num_experts
+    E_local = wg.shape[0]
     C = expert_capacity(T, cfg)
     dev = x.device
 
@@ -97,39 +121,43 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg: MoEConfig,
     slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=dev)
     slot_tok.index_put_((e_ids.reshape(-1), safe_pos.reshape(-1)),
                         torch.where(keep, tok_ids, T).reshape(-1))
-    slot_tok = slot_tok[:, :C].reshape(-1)                      # [E*C]
+    # this rank's experts' slots [E_local*C]
+    slot_tok = slot_tok[e_off:e_off + E_local, :C].reshape(-1)
 
-    # gather expert inputs [E, C, D]
+    # gather expert inputs [E_local, C, D]
     x_pad = torch.cat([x, x.new_zeros((1, D))])
-    xe = x_pad.index_select(0, slot_tok).reshape(E, C, D)
+    xe = x_pad.index_select(0, slot_tok).reshape(E_local, C, D)
 
     # expert SwiGLU as three batched products
     h = torch.bmm(xe, wg)
     u = torch.bmm(xe, wu)
     h = F.silu(h.to(f32)).to(x.dtype) * u
-    ye = torch.bmm(h, wd)                                       # [E,C,D]
+    ye = torch.bmm(h, wd)                                 # [E_local,C,D]
 
     # per-slot gate value: gates[token, expert]
     gates_pad = torch.cat([gates, gates.new_zeros((1, E))])
-    slot_gate = gates_pad[slot_tok.reshape(E, C),
-                          torch.arange(E, device=dev)[:, None]]  # [E,C]
+    slot_gate = gates_pad[slot_tok.reshape(E_local, C),
+                          e_off + torch.arange(E_local, device=dev)[:, None]]
 
     # combine in fp32 without atomics: token t's k routed experts in
     # ascending order (a stable sort of its mask row puts them first), each
-    # pair's slot e*C + pos, or the zero row E*C where it was dropped; the
-    # gated outputs gathered [T, k, D] and summed over the slot axis
+    # pair's slot (e - e_off)*C + pos, or the zero row E_local*C where it
+    # was dropped or its expert is another rank's; the gated outputs
+    # gathered [T, k, D] and summed over the slot axis
     k = cfg.top_k
     t_exp = torch.sort(mask, dim=1, descending=True, stable=True)[1][:, :k]
-    t_slot = torch.where(keep.gather(1, t_exp),
-                         t_exp * C + pos.gather(1, t_exp), E * C)
-    yg = (ye.to(f32) * slot_gate[..., None]).reshape(E * C, D)
+    mine = keep.gather(1, t_exp) & (t_exp >= e_off) \
+        & (t_exp < e_off + E_local)
+    t_slot = torch.where(mine, (t_exp - e_off) * C + pos.gather(1, t_exp),
+                         E_local * C)
+    yg = (ye.to(f32) * slot_gate[..., None]).reshape(E_local * C, D)
     yg = torch.cat([yg, yg.new_zeros((1, D))])
     y = yg[t_slot].sum(dim=1)
     if not combine_fp32:
         y = y.to(x.dtype)
     aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
            "moe_dropped": dropped}
-    return y.to(x.dtype), aux
+    return y, aux
 
 
 def moe_ffn(x, params, cfg: MoEConfig, *, combine_fp32: bool = True,
@@ -138,17 +166,89 @@ def moe_ffn(x, params, cfg: MoEConfig, *, combine_fp32: bool = True,
     [E,F,D] (+ shared_wg/shared_wu [D,F'], shared_wd [F',D]). Returns (y
     [B,S,D], metrics).
 
-    Every token of the call shares the capacity (T = B*S), so a decode
-    step's inactive slots route and take slots too, as in the reference.
-    ``expert_tp`` (expert d_ff sharded over the data axes) acts only under
-    a device mesh, as in the reference, and is accepted and ignored
-    here."""
+    Every token of the call (of a data shard, under a mesh) shares the
+    capacity, so a decode step's inactive slots route and take slots too,
+    as in the reference. ``expert_tp`` (expert d_ff sharded over the data
+    axes) acts only under a device mesh, as in the reference."""
     B, S, D = x.shape
-    y, aux = _local_moe(x.reshape(B * S, D), params["router"], params["wg"],
-                        params["wu"], params["wd"], cfg=cfg,
-                        combine_fp32=combine_fp32)
-    y = y.reshape(B, S, D)
+    mesh = current_mesh() if isinstance(x, DTensor) else None
+    rules = current_rules()
+    shape = mesh_shape(mesh) if mesh is not None else {}
+    ep_size = math.prod(shape[a] for a in rules.ep) if mesh else 1
+    dp_size = math.prod(shape[a] for a in rules.dp) if mesh else 1
+    dff = params["wg"].shape[-1]
+    E = cfg.num_experts
+    use_expert_tp = (expert_tp and mesh is not None and ep_size > 1
+                     and E % ep_size == 0 and dp_size > 1
+                     and dff % dp_size == 0)
+    use_shard_map = (mesh is not None and ep_size > 1 and E % ep_size == 0
+                     and (B * S) % dp_size == 0 and B % dp_size == 0)
+    xf = x.reshape(B * S, D)
+    w = (params["router"], params["wg"], params["wu"], params["wd"])
+    if use_expert_tp or use_shard_map:
+        y, aux = _moe_sharded(xf, w, cfg, combine_fp32, use_expert_tp)
+    elif mesh is not None:      # every rank routes every token over all
+        rep = (Replicate(),) * mesh.ndim    # experts, as GSPMD would
+        y, *aux = shard_map_placements(
+            lambda *a: _flat(_local_moe(*a, cfg=cfg,
+                                        combine_fp32=combine_fp32)),
+            (xf, *w), (rep,) * 5, (rep,) * 4)
+        aux = dict(zip(_METRICS, aux))
+    else:
+        y, aux = _local_moe(xf, *w, cfg=cfg, combine_fp32=combine_fp32)
+    y = y.to(x.dtype).reshape(B, S, D)
     if cfg.num_shared_experts:
         y = y + L.swiglu(x, params["shared_wg"], params["shared_wu"],
                          params["shared_wd"])
     return y, aux
+
+
+_METRICS = ("moe_aux_loss", "moe_z_loss", "moe_dropped")
+
+
+def _flat(out):
+    y, aux = out
+    return (y, *(aux[k] for k in _METRICS))
+
+
+def _moe_sharded(xf, w, cfg: MoEConfig, combine_fp32: bool,
+                 expert_tp: bool):
+    """The reference's two ``shard_map`` branches of ``moe_ffn`` on the
+    ambient mesh: (y [T, D] summed over the ranks' partials, in fp32 under
+    ``combine_fp32``, metrics replicated)."""
+    mesh = current_mesh()
+    if expert_tp:       # tokens replicated; experts (ep) x d_ff (dp)
+        x_pl = placements_for(xf.shape, None, None)
+        wgu_pl = placements_for(w[1].shape, "ep", None, "dp")
+        wd_pl = placements_for(w[3].shape, "ep", "dp", None)
+    else:               # tokens over dp; experts (ep)
+        x_pl = placements_for(xf.shape, "dp", None)
+        wgu_pl = wd_pl = placements_for(w[1].shape, "ep", None, None)
+    r_pl = placements_for(w[0].shape, None, None)
+    ep_dims = mesh_dims(mesh, wgu_pl, 0)
+    # a rank's y is a summand over every dim that splits the experts or
+    # their d_ff; the metrics, the same on the ranks of a data shard, are
+    # spread as equal summands over the others and averaged over the data
+    # shards (``moe_dropped`` summed)
+    y_pl = tuple(Shard(0) if pl == Shard(0) else Partial()
+                 for pl in x_pl)
+    data_dims = mesh_dims(mesh, x_pl, 0)
+    n_data = math.prod(mesh.size(i) for i in data_dims)
+    n_rest = mesh.size() // n_data
+
+    share = {"moe_aux_loss": n_data * n_rest, "moe_z_loss": n_data * n_rest,
+             "moe_dropped": n_rest}
+
+    def local(x, router, wg, wu, wd):
+        e_off = mesh_coordinate(mesh, ep_dims) * wg.shape[0]
+        y, aux = _local_moe(x, router, wg, wu, wd, cfg=cfg,
+                            combine_fp32=combine_fp32, e_off=e_off)
+        return (y, *(aux[k] / share[k] for k in _METRICS))
+
+    m_pl = (Partial(),) * mesh.ndim
+    y, *aux = shard_map_placements(
+        local, (xf, *w), (x_pl, r_pl, wgu_pl, wgu_pl, wd_pl),
+        (y_pl,) + (m_pl,) * len(_METRICS))
+    y = constrain(y, *(("dp", None) if not expert_tp else (None, None)))
+    rep = (Replicate(),) * mesh.ndim
+    return y, {k: v.redistribute(mesh, rep) for k, v in zip(_METRICS, aux)}

@@ -16,7 +16,9 @@ it in plain PyTorch: a Hillis-Steele doubling scan, log2(256) = 8 steps
 of whole-chunk tensor ops, not a launch per token.
 
 The state ``{"h": [B,di,ds] fp32, "conv": [B,K-1,di]}`` comes back as new
-tensors; the model copies it into its cache rows.
+tensors; the model copies it into its cache rows. Under a device mesh
+(``parallel.sharding.use_mesh``) a prompt's convolution and scan run on
+each rank's batch and channels.
 """
 from __future__ import annotations
 
@@ -25,8 +27,11 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import linear
+from repro_torch.parallel.sharding import constrain, current_mesh, shard_map
 
 f32 = torch.float32
 CHUNK = 256
@@ -46,6 +51,8 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, *, device
     s = 1.0 / math.sqrt(D)
 
     def normal(shape, std):
+        if torch.device(device).type == "meta":     # shapes only, no draws
+            return torch.empty(shape, dtype=dt, device=device)
         x = torch.randn(shape, generator=gen, dtype=f32, device=device)
         return (x * std).to(dt)
 
@@ -107,30 +114,24 @@ def _scan_chunk(a, b, h0):
 
 def _project(params, xs, ds: int):
     """(B, C, delta) of the selective projection, fp32: delta =
-    softplus(dt) + 1e-4."""
-    proj = xs @ params["x_proj"]                              # [...,2ds+1]
+    softplus(dt) + 1e-4. Under a mesh the projection's sum over the
+    channels is completed first."""
+    proj = linear(xs, params["x_proj"])                       # [...,2ds+1]
+    proj = constrain(proj, "dp", *(None,) * (proj.dim() - 1))
     return (proj[..., :ds].to(f32), proj[..., ds:2 * ds].to(f32),
             softplus(proj[..., -1].to(f32)) + 1e-4)
 
 
-def ssm_apply(params, x, state, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B,S,D] -> (y [B,S,D], new state) from ``state``."""
-    B, S, D = x.shape
-    ds = cfg.ssm_state
-    dt_ = x.dtype
-    xs, z = (x @ params["in_proj"]).chunk(2, dim=-1)          # [B,S,di]
-    xs, conv_state = _causal_conv(xs, params["conv_w"], state["conv"])
-    xs = F.silu(xs.to(f32)).to(dt_)
-    B_ssm, C_ssm, delta = _project(params, xs, ds)
-    A = -torch.exp(params["A_log"])                           # [di,ds]
-    xf = xs.to(f32)
+def _scan(xf, B_ssm, C_ssm, delta, A, h):
+    """The recurrence over a prompt, chunk by chunk: xf [B,S,di] fp32, B/C
+    [B,S,ds], delta [B,S], A [di,ds], h [B,di,ds]. Returns (C_t h_t [B,S,di],
+    the last h)."""
+    S = xf.shape[1]
     Lc = min(CHUNK, S)
     pad = (-S) % Lc
     # a pad position: delta = 0 -> a = 1, b = 0, the state passes through
     xp, Bp, Cp = (F.pad(t, (0, 0, 0, pad)) for t in (xf, B_ssm, C_ssm))
     dp = F.pad(delta, (0, pad))[..., None]                    # [B,Sp,1]
-    h = state["h"]
     ys = []
     for lo in range(0, S + pad, Lc):
         dck = dp[:, lo:lo + Lc]                               # [B,Lc,1]
@@ -138,10 +139,46 @@ def ssm_apply(params, x, state, cfg: ModelConfig
         b = (dck * xp[:, lo:lo + Lc])[..., None] * Bp[:, lo:lo + Lc, None, :]
         h_all, h = _scan_chunk(a, b, h)
         ys.append(torch.einsum("blds,bls->bld", h_all, Cp[:, lo:lo + Lc]))
-    y = torch.cat(ys, dim=1)[:, :S]
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+_CH = ("dp", None, "tp")                # [B,S,di]: batch dp, channels tp
+_ROW = ("dp", None, None)               # [B,S,ds]
+
+
+def _in_proj(params, x):
+    """(xs, z) [B,S,di] of the input projection. Under a mesh the fused
+    [B,S,2*di] product is split whole, then each half laid out over the
+    channels."""
+    xz = linear(x, params["in_proj"])
+    if current_mesh() is None or not isinstance(xz, DTensor):
+        return xz.chunk(2, dim=-1)
+    xs, z = constrain(xz, *_ROW).chunk(2, dim=-1)
+    return constrain(xs, *_CH), constrain(z, *_CH)
+
+
+def ssm_apply(params, x, state, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: [B,S,D] -> (y [B,S,D], new state) from ``state``. Under a mesh
+    the convolution and the scan run on each rank's batch and channels
+    (``shard_map``): both are per channel."""
+    ds = cfg.ssm_state
+    dt_ = x.dtype
+    xs, z = _in_proj(params, x)                               # [B,S,di]
+    xs, conv_state = shard_map(
+        _causal_conv, (xs, params["conv_w"], state["conv"]),
+        (_CH, (None, "tp"), _CH), lambda pl: (pl[0], pl[2]))
+    xs = F.silu(xs.to(f32)).to(dt_)
+    B_ssm, C_ssm, delta = _project(params, xs, ds)
+    A = -torch.exp(params["A_log"])                           # [di,ds]
+    xf = xs.to(f32)
+    y, h = shard_map(_scan, (xf, B_ssm, C_ssm, delta, A, state["h"]),
+                     (_CH, _ROW, _ROW, ("dp", None), ("tp", None),
+                      ("dp", "tp", None)), lambda pl: (pl[0], pl[5]))
     y = y + xf * params["D_skip"]
     y = y * F.silu(z.to(f32))
-    return y.to(dt_) @ params["out_proj"], {"h": h, "conv": conv_state}
+    return linear(y.to(dt_), params["out_proj"]), {"h": h,
+                                                   "conv": conv_state}
 
 
 def ssm_step(params, x, state, cfg: ModelConfig

@@ -11,6 +11,11 @@ Every function that attends takes ``impl``: ``"kernel"`` runs the
 hand-written CUDA kernels of ``repro_torch.kernels`` (on a CPU tensor their
 wrappers run the plain version), ``"plain"`` runs the plain PyTorch
 versions on any device. The serving engine picks ``"kernel"`` on CUDA.
+``"xla"`` is the reference's default lowering: ``"plain"``, but with a
+whole prompt's attention (``attn_full``) the blocked online softmax
+(``layers.causal_attention_xla``, banded under a sliding window) in place
+of the kernel's plain version and its whole score tensor. The training
+forward and the dry run run it.
 
 Two KV layouts, as in the reference:
 
@@ -79,11 +84,14 @@ A sliding window on the attn block comes with a later slice
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
@@ -93,9 +101,13 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.models import layers as L
 from repro_torch.models import moe, rwkv6, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import (constrain, current_mesh,
+                                           mesh_coordinate, mesh_dims, pin,
+                                           placements_for,
+                                           shard_map_placements)
 
 f32 = torch.float32
-IMPLS = ("kernel", "plain")
+IMPLS = ("kernel", "plain", "xla")
 
 
 def _check_impl(impl: str) -> None:
@@ -153,9 +165,22 @@ def _check_attn(cfg: ModelConfig, what: str) -> None:
 
 def _normal(gen, shape, std, device, dtype):
     """N(0, std^2) drawn in fp32 on ``device``, then cast (the reference's
-    ``(normal(f32) * std).astype(dt)``)."""
+    ``(normal(f32) * std).astype(dt)``); on the meta device a shape and a
+    dtype only (``gen`` is None there)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=f32, device=device)
     return (x * std).to(dtype)
+
+
+def _generator(device: torch.device, seed: int):
+    """A seeded generator on ``device``; None on the meta device, which
+    has none and draws nothing."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
 
 
 def _init_moe(gen, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
@@ -188,11 +213,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     ``vis_proj`` w1 [vision_dim,D] and w2 [D,D] of std 1/sqrt(vision_dim)
     and 1/sqrt(D)), drawn from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
-    the same weights convert the JAX ones (``repro_torch.convert``)."""
+    the same weights convert the JAX ones (``repro_torch.convert``). On
+    ``device="meta"`` it draws nothing (``abstract_params``)."""
     _check_family(cfg)
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen = _generator(device, seed)
     D, dh, V, F = cfg.d_model, cfg.dh, cfg.padded_vocab, cfg.d_ff
     Hp, Hkv = cfg.padded_heads, cfg.padded_kv_heads
     dt = cfg.tdtype
@@ -248,12 +273,51 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """``init_params``'s tree on the meta device: every leaf's shape and
+    dtype, no storage (the reference's ``jax.eval_shape`` of its init; the
+    dry-run path)."""
+    return init_params(cfg, device="meta")
+
+
 # ---------------------------------------------------------------------------
 # Embedding / head
 
 
+def _sharded(x) -> bool:
+    """True for a DTensor under a device mesh (``use_mesh``)."""
+    return current_mesh() is not None and isinstance(x, DTensor)
+
+
+def _embed_sharded(table, tokens):
+    """The embedding lookup on a vocab-sharded table: each rank looks up
+    the tokens that fall in its rows (zeros elsewhere) and the ranks'
+    rows are summed (a partial over the vocab axes), where indexing would
+    gather the whole table. Tokens keep their batch layout; an FSDP split
+    of the table's width is gathered first."""
+    mesh = current_mesh()
+    t_pl = placements_for(table.shape, "vocab", None)
+    x_pl = placements_for(tokens.shape, "dp", *(None,) * (tokens.dim() - 1))
+    vocab_dims = mesh_dims(mesh, t_pl, 0)
+    out_pl = tuple(Partial() if i in vocab_dims else x_pl[i]
+                   for i in range(mesh.ndim))
+
+    def local(table, tokens):
+        n = table.shape[0]
+        rel = tokens.long() - mesh_coordinate(mesh, vocab_dims) * n
+        ok = (rel >= 0) & (rel < n)
+        rows = table[rel.clamp(0, n - 1)]
+        return torch.where(ok[..., None], rows, torch.zeros_like(rows))
+
+    return shard_map_placements(local, (table, tokens), (t_pl, x_pl), out_pl)
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens]
+    if _sharded(params["embed"]):
+        out = _embed_sharded(params["embed"], tokens)
+    else:
+        out = params["embed"][tokens]
+    return constrain(out, "dp", None, None)
 
 
 def embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, Any]):
@@ -268,7 +332,7 @@ def embed_inputs(params, cfg: ModelConfig, inputs: Dict[str, Any]):
     w = params["vis_proj"]
     pe = inputs["patch_embeds"].to(cfg.tdtype)
     h = F.gelu((pe @ w["w1"]).float(), approximate="tanh").to(cfg.tdtype)
-    vis = h @ w["w2"]
+    vis = constrain(h @ w["w2"], "dp", None, None)
     B, P = vis.shape[:2]
     mask = torch.cat([torch.zeros((B, P), dtype=torch.bool, device=vis.device),
                       torch.ones(tok_emb.shape[:2], dtype=torch.bool,
@@ -290,11 +354,23 @@ def _logits(params, cfg: ModelConfig, x):
     ``preferred_element_type=f32``: bf16 operands, fp32 accumulation and
     fp32 output (bf16-rounded logits would drift greedy argmax ties)."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if x.is_cuda and x.dtype != f32:
-        logits = torch.mm(x, head, out_dtype=f32)
+
+    def product(x, head):
+        if x.is_cuda and x.dtype != f32:
+            return torch.mm(x, head, out_dtype=f32)
+        return x.float() @ head.float()
+
+    if _sharded(head):      # rows over dp, vocab over tp: each rank's block
+        mesh = current_mesh()
+        x_pl = placements_for(x.shape, "dp", None)
+        h_pl = placements_for(head.shape, None, "vocab")
+        out_pl = tuple(Shard(1) if p == Shard(1) else x_pl[i]
+                       for i, p in enumerate(h_pl))
+        logits = shard_map_placements(product, (x, head), (x_pl, h_pl),
+                                      out_pl)
     else:
-        logits = x.float() @ head.float()
-    return _mask_padded_vocab(logits, cfg)
+        logits = product(x, head)
+    return constrain(_mask_padded_vocab(logits, cfg), "dp", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +395,10 @@ def _kv_dequant(vals, scales, dtype):
 # Attention block
 
 
+_HEADS = ("dp", None, "tp", None)      # [B,S,H,dh]: batch dp, heads tp
+_ROWS = ("dp", None, None, None)       # [B,S,Hkv,dh]: batch dp
+
+
 def _head_map(cfg: ModelConfig, device):
     """q-head -> kv-head index map (padded q heads -> kv head 0, or h//g
     when kv heads are padded alongside q heads)."""
@@ -333,12 +413,13 @@ def _head_map(cfg: ModelConfig, device):
 
 
 def _qkv(p, xn, cfg: ModelConfig, positions):
-    B, S, D = xn.shape
-    q = (xn @ p["wq"].reshape(D, -1)).reshape(B, S, cfg.padded_heads, cfg.dh)
-    k = (xn @ p["wk"].reshape(D, -1)).reshape(B, S, cfg.padded_kv_heads,
-                                                cfg.dh)
-    v = (xn @ p["wv"].reshape(D, -1)).reshape(B, S, cfg.padded_kv_heads,
-                                                cfg.dh)
+    D = xn.shape[-1]
+    q = L.split_heads(L.linear(xn, pin(p["wq"].reshape(D, -1))),
+                      cfg.padded_heads, cfg.dh)
+    k = L.split_heads(L.linear(xn, pin(p["wk"].reshape(D, -1))),
+                      cfg.padded_kv_heads, cfg.dh)
+    v = L.split_heads(L.linear(xn, pin(p["wv"].reshape(D, -1))),
+                      cfg.padded_kv_heads, cfg.dh)
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -348,6 +429,9 @@ def _qkv(p, xn, cfg: ModelConfig, positions):
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, None, None)
+    v = constrain(v, "dp", None, None, None)
     return q, k, v
 
 
@@ -356,7 +440,29 @@ def _attn_out(p, o, cfg: ModelConfig):
     if cfg.padded_heads != cfg.num_heads:   # zero padded heads (exact)
         keep = torch.arange(cfg.padded_heads, device=o.device) < cfg.num_heads
         o = o * keep[None, None, :, None].to(o.dtype)
-    return o.reshape(B, S, -1) @ p["wo"].reshape(-1, cfg.d_model)
+    out = L.linear(o.reshape(B, S, -1), pin(p["wo"].reshape(-1, cfg.d_model)))
+    return constrain(out, "dp", None, None)
+
+
+def _local_heads(core, q, k, v, hmap):
+    """``core(q, kr, vr)`` over q [B,S,Hp,dh] and K/V [B,S,Hkvp,dh]
+    expanded to the query heads by ``hmap``. Under a mesh it runs on each
+    rank's batch and query heads (``shard_map``), expanding its KV heads
+    locally from its slice of the head map: DTensor can carry neither two
+    sharded batch dims into one product nor the expansion's backward."""
+    if not _sharded(q):
+        return core(q, L.expand_kv(k, hmap), L.expand_kv(v, hmap))
+    mesh = current_mesh()
+    q_pl = placements_for(q.shape, *_HEADS)
+    kv_pl = placements_for(k.shape, *_ROWS)
+
+    def local(q, k, v):
+        n = q.shape[2]
+        lo = mesh_coordinate(mesh, mesh_dims(mesh, q_pl, 2)) * n
+        hm = hmap[lo:lo + n]
+        return core(q, *(torch.index_select(t, 2, hm) for t in (k, v)))
+
+    return shard_map_placements(local, (q, k, v), (q_pl, kv_pl, kv_pl), q_pl)
 
 
 def _kernel_ok(cfg: ModelConfig) -> None:
@@ -381,38 +487,104 @@ def attn_full(p, x, cfg: ModelConfig, *, pos_offset: int = 0,
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=True, window=cfg.sliding_window)
     else:
-        hmap = _head_map(cfg, x.device)
-        o = flash_attention_ref(q, L.expand_kv(k, hmap),
-                                L.expand_kv(v, hmap), causal=True,
-                                window=cfg.sliding_window)
+        W = cfg.sliding_window
+        if impl == "plain":
+            core = functools.partial(flash_attention_ref, causal=True,
+                                     window=W)
+        elif W:
+            core = functools.partial(L.sliding_window_attention_xla,
+                                     window=W)
+        else:
+            core = L.causal_attention_xla
+        o = _local_heads(core, q, k, v, _head_map(cfg, x.device))
     return _attn_out(p, o.to(x.dtype), cfg), (k, v)
+
+
+def _softmax_pv(s, v, dims, merge=()):
+    """softmax(s) @ v over the last axis of s [..., K] and the K rows of v
+    (``dims`` the einsum), p rounded to v's dtype first. ``merge``: the
+    mesh groups that split K (a context-parallel decode): the max and the
+    sum of the softmax are reduced over them first, each rank's share of
+    the product after -- the same softmax, in another order of
+    additions."""
+    if merge:
+        m = s.amax(dim=-1, keepdim=True)
+        for g in merge:
+            m = funcol.all_reduce(m, "max", g)
+        e = torch.exp(s - m)
+        tot = e.sum(dim=-1, keepdim=True)
+        for g in merge:
+            tot = funcol.all_reduce(tot, "sum", g)
+        pr = e / tot
+    else:
+        pr = torch.softmax(s, dim=-1)
+    o = torch.einsum(dims, pr.to(v.dtype).float(), v.float())
+    for g in merge:
+        o = funcol.all_reduce(o, "sum", g)
+    return o
+
+
+def _decode_core(q, kd, vd, valid, cfg: ModelConfig, merge=()):
+    B = q.shape[0]
+    scale = 1.0 / math.sqrt(cfg.dh)
+    if cfg.grouped_decode and cfg.can_group_decode:
+        # GQA without materializing the expanded KV
+        qg = q[:, 0].reshape(B, kd.shape[2], -1, cfg.dh)
+        s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), kd.float()) * scale
+        s = torch.where(valid[:, None, None, :], s,
+                        torch.full_like(s, L.NEG_INF))
+        o = _softmax_pv(s, vd, "bhgk,bkhd->bhgd", merge)
+        return o.reshape(B, 1, -1, cfg.dh)
+    hmap = _head_map(cfg, q.device)
+    kr, vr = L.expand_kv(kd, hmap), L.expand_kv(vd, hmap)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, L.NEG_INF))
+    return _softmax_pv(s, vr, "bhqk,bkhd->bqhd", merge)
 
 
 def _decode_attend(q, kd, vd, valid, cfg: ModelConfig):
     """Single-token attention core of the plain dense and paged paths:
     q [B,1,Hp,dh] against kd/vd [B,C,Hkvp,dh] with validity mask [B,C].
     One core for both layouts, as in the reference: masked columns add
-    exact zeros, so the two layouts' plain streams agree."""
-    B = q.shape[0]
-    scale = 1.0 / math.sqrt(cfg.dh)
-    Hkvp = cfg.padded_kv_heads
-    if cfg.grouped_decode and cfg.can_group_decode:
-        # GQA without materializing the expanded KV
-        qg = q[:, 0].reshape(B, Hkvp, -1, cfg.dh)
-        s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), kd.float()) * scale
-        s = torch.where(valid[:, None, None, :], s,
-                        torch.full_like(s, L.NEG_INF))
-        pr = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhgk,bkhd->bhgd", pr.to(vd.dtype).float(),
-                         vd.float())
-        return o.reshape(B, 1, cfg.padded_heads, cfg.dh)
-    hmap = _head_map(cfg, q.device)
-    kr, vr = L.expand_kv(kd, hmap), L.expand_kv(vd, hmap)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * scale
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, L.NEG_INF))
-    pr = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", pr.to(vr.dtype).float(),
-                        vr.float())
+    exact zeros, so the two layouts' plain streams agree.
+
+    Under a mesh it runs on each rank's shard of the cache, laid out as
+    the cache is (``specs.cache_shardings``): batch over the data axes
+    where it divides them, and KV heads over the model axis where they
+    divide it, else the *sequence* -- the reference's context-parallel
+    decode attention, its partial softmaxes merged over the axes that
+    split the sequence."""
+    if not _sharded(kd):
+        return _decode_core(q, kd, vd, valid, cfg)
+    mesh = current_mesh()
+    kv_pl = tuple(kd.placements)
+    grouped = cfg.grouped_decode and cfg.can_group_decode
+    if mesh_dims(mesh, kv_pl, 2) and not grouped:
+        # the expanded path's head map is the whole model's
+        kv_pl = tuple(Replicate() if pl == Shard(2) else pl for pl in kv_pl)
+    q_pl = tuple(pl if pl in (Shard(0), Shard(2)) else Replicate()
+                 for pl in kv_pl)
+    valid_pl = tuple(pl if pl in (Shard(0), Shard(1)) else Replicate()
+                     for pl in kv_pl)
+    merge = tuple((mesh, i) for i in mesh_dims(mesh, kv_pl, 1))
+    return shard_map_placements(
+        lambda q, kd, vd, valid: _decode_core(q, kd, vd, valid, cfg, merge),
+        (q, kd, vd, valid), (q_pl, kv_pl, kv_pl, valid_pl), q_pl)
+
+
+def _write_row(cache, at, row):
+    """cache[b, slot[b]] = row[b] for every b, in place, ``at`` being
+    (arange(B), slot). Under a mesh an elementwise select over the row's
+    position mask, which DTensor shards whatever dims the cache splits
+    (``index_put_`` has no sharded form)."""
+    if not _sharded(cache):
+        cache.index_put_(at, row.to(cache.dtype))
+        return
+    slot = at[1]
+    hit = torch.arange(cache.shape[1], device=row.device)[None, :] == \
+        slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (cache.dim() - 2))
+    cache.copy_(torch.where(hit, row[:, None].to(cache.dtype), cache))
 
 
 def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
@@ -438,19 +610,19 @@ def attn_decode(p, x1, cfg: ModelConfig, k_cache, v_cache, pos,
                          f"a ring of {W} rows, not {C}")
     q, k, v = _qkv(p, x1, cfg, pos[:, None])
     pos_l = pos.long()
-    bidx = torch.arange(B, device=x1.device)
     slot = pos_l % C if W else pos_l.clamp(max=C - 1)
+    at = (torch.arange(B, device=x1.device), slot)
     if cfg.kv_quant:
         for t, cache, key in ((k, k_cache, "k_scale"),
                               (v, v_cache, "v_scale")):
             vals, sc = _kv_quantize(t[:, 0])
-            cache.index_put_((bidx, slot), vals)
-            scales[key].index_put_((bidx, slot), sc)
+            _write_row(cache, at, vals)
+            _write_row(scales[key], at, sc)
         kd = _kv_dequant(k_cache, scales["k_scale"], x1.dtype)
         vd = _kv_dequant(v_cache, scales["v_scale"], x1.dtype)
     else:
-        k_cache.index_put_((bidx, slot), k[:, 0].to(k_cache.dtype))
-        v_cache.index_put_((bidx, slot), v[:, 0].to(v_cache.dtype))
+        _write_row(k_cache, at, k[:, 0])
+        _write_row(v_cache, at, v[:, 0])
         kd, vd = k_cache, v_cache
     if impl == "kernel":
         _kernel_ok(cfg)
@@ -579,6 +751,29 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     return x, entry
 
 
+def _stacked(t, n: int):
+    """An empty [n, *t.shape] of ``t``'s dtype and device (a DTensor's
+    layout one dim on) for the layers' entries, written as each is made:
+    the cache is held once, where stacking a list of them at the end
+    holds it twice (the reference's scan writes its stacked output in
+    place)."""
+    if not isinstance(t, DTensor):
+        return t.new_empty((n,) + tuple(t.shape))
+    local = t.to_local()
+    return DTensor.from_local(
+        local.new_empty((n,) + tuple(local.shape)), t.device_mesh,
+        [Shard(p.dim + 1) if isinstance(p, Shard) else p
+         for p in t.placements], run_check=False)
+
+
+def _write_layer(buf, i: int, t) -> None:
+    """buf[i] = t, on the local shards under a mesh (``_stacked`` gave
+    ``buf`` the layout of ``t`` one dim on)."""
+    if isinstance(t, DTensor):
+        buf, t = buf.to_local(), t.to_local()
+    buf[i].copy_(t)
+
+
 def prefill_full(params, cfg: ModelConfig, inputs, *,
                  capacity: Optional[int] = None, impl: str = "kernel"):
     """Single-shot prefill. inputs: {"tokens": [B,S] int} (and a vision
@@ -593,14 +788,15 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
     x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
-    entries = []
-    for p in params["blocks"]:
+    n, cache = len(params["blocks"]), {}
+    for i, p in enumerate(params["blocks"]):
         x, entry = _layer_prefill(p, x, cfg, impl)
-        entries.append(entry)
+        for key in _cache_keys(cfg):
+            if i == 0:
+                cache[key] = _stacked(entry[key], n)
+            _write_layer(cache[key], i, entry[key])
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1])
-    cache = {key: torch.stack([e[key] for e in entries])
-             for key in _cache_keys(cfg)}
     if cfg.block == "attn" and capacity > S:    # grow to the capacity
         for key in _cache_keys(cfg):
             c = cache[key]
@@ -642,6 +838,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
                       for key, t in (("ssm_h", state["h"]),
                                      ("conv", state["conv"]))})
     return {**cache, "pos": pos}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, capacity: int):
+    """``init_cache``'s tree on the meta device (no storage)."""
+    return init_cache(cfg, batch, capacity, device="meta")
 
 
 def _cache_keys(cfg: ModelConfig):
@@ -911,22 +1112,6 @@ def _pad_aux(aux, device):
     return out
 
 
-def _attn_train(p, xn, cfg: ModelConfig):
-    """The training forward's attention: the reference's ``attn_full``
-    with ``impl="xla"`` — K/V expanded to the query heads, then the
-    blocked causal online softmax (banded where the config has a
-    sliding window), all differentiable PyTorch."""
-    S = xn.shape[1]
-    q, k, v = _qkv(p, xn, cfg, torch.arange(S, device=xn.device)[None, :])
-    hmap = _head_map(cfg, xn.device)
-    kr, vr = L.expand_kv(k, hmap), L.expand_kv(v, hmap)
-    if cfg.sliding_window:
-        o = L.sliding_window_attention_xla(q, kr, vr, cfg.sliding_window)
-    else:
-        o = L.causal_attention_xla(q, kr, vr)
-    return _attn_out(p, o.to(xn.dtype), cfg)
-
-
 def _layer_train(p, x, cfg: ModelConfig):
     """One layer of the training forward: (x, MoE metrics padded with
     zeros). An RWKV layer starts from the zero state, as a hybrid layer's
@@ -936,7 +1121,7 @@ def _layer_train(p, x, cfg: ModelConfig):
         x, _ = rwkv6.rwkv_block(p, x, state, cfg, impl="plain")
         return x, _zero_aux(x.device)
     xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    y = _attn_train(p, xn, cfg)
+    y, _ = attn_full(p, xn, cfg, impl="xla")
     if cfg.block == "hybrid":
         ssm_out, _ = ssm.ssm_apply(
             p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
@@ -991,11 +1176,29 @@ def _chunk_loss(xc, head, lc, mc, cfg: Optional[ModelConfig]):
         logits = _MatmulF32.apply(xc.reshape(B * Sc, D), head)
     else:
         logits = xc.reshape(B * Sc, D).float() @ head.float()
-    logits = logits.reshape(B, Sc, -1)
+    logits = constrain(logits.reshape(B, Sc, -1), "dp", None, "vocab")
     if cfg is not None:
         logits = _mask_padded_vocab(logits, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+    if _sharded(logits):
+        # vocab-sharded: the max and the sums reduce over the vocab shards
+        # (all-reduces), and the label's logit is a masked sum -- DTensor
+        # would gather the logits for logsumexp and cannot reduce a
+        # gather's masked partial
+        # (each reduction replicated at once: left partial, DTensor may
+        # reduce-scatter it over the sequence, a layout its backward
+        # cannot carry through the [B*Sc, D] product)
+        m = constrain(logits.detach().amax(dim=-1, keepdim=True),
+                      "dp", None, None)
+        se = constrain(torch.exp(logits - m).sum(dim=-1, keepdim=True),
+                       "dp", None, None)
+        lse = (m + torch.log(se))[..., 0]
+        hit = torch.arange(logits.shape[-1], device=lc.device) == \
+            lc.long()[..., None]
+        ll = constrain(torch.where(hit, logits, torch.zeros_like(logits))
+                       .sum(dim=-1), "dp", None)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
     return ((lse - ll) * mc).sum()
 
 

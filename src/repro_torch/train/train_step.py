@@ -14,9 +14,11 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel.sharding import constrain, current_mesh
 from repro_torch.train.optimizer import Optimizer, clip_by_global_norm
 from repro_torch.tree import leaves, unflatten_like
 
@@ -24,11 +26,22 @@ f32 = torch.float32
 
 
 def _split_microbatches(batch: Dict[str, Any], accum: int):
+    """Microbatch i is rows [i*B/accum, (i+1)*B/accum), as in the
+    reference. Under a mesh the (small) batch is gathered, split, and each
+    microbatch laid out over the data axes again, the reshard GSPMD makes
+    of the reference's reshape: a batch sharded 16 ways does not fold into
+    8 microbatches where it lies."""
     def sp(x):
         B = x.shape[0]
         if B % accum:
             raise ValueError(f"batch {B} does not split into {accum} "
                              "microbatches")
+        rest = (None,) * (x.dim() - 1)
+        if isinstance(x, DTensor) and current_mesh() is not None:
+            x = x.redistribute(x.device_mesh,
+                               (Replicate(),) * x.device_mesh.ndim)
+            return constrain(x.reshape(accum, B // accum, *x.shape[1:]),
+                             None, "dp", *rest)
         return x.reshape(accum, B // accum, *x.shape[1:])
     split = {k: sp(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(accum)]
@@ -57,8 +70,7 @@ def loss_and_grad(params, cfg: ModelConfig, batch):
         return loss, metrics, unflatten_like(params, grads)
 
     n = cfg.grad_accum
-    g_acc = [torch.zeros(p.shape, dtype=f32, device=p.device)
-             for p in leaves(params)]
+    g_acc = [torch.zeros_like(p, dtype=f32) for p in leaves(params)]
     loss_sum = torch.zeros((), dtype=f32, device=g_acc[0].device)
     per_mb = []
     for mb in _split_microbatches(batch, n):

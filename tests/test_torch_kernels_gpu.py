@@ -927,3 +927,57 @@ def test_moe_ffn_at_granite_width_is_bit_reproducible(cuda):
         assert torch.isfinite(y1).all()
         assert torch.equal(y1, y2)
         assert torch.equal(a1["moe_dropped"], a2["moe_dropped"])
+
+
+def test_dryrun_card_cells_kernel_path_holds_to_plain(cuda):
+    """``chip_smoke.py`` phase 34's plain-against-kernel check at a small
+    size: qwen2.5-3b's heads (16/2 of 128, QKV bias) at 2 layers, bf16, a
+    prefill of 2 x 256 and a dense decode step of 4 slots over 512 rows
+    (256 cached). Flash runs once per layer per prefill and kernel 3 once
+    per layer per step; each path's logits are held to a float32 run of
+    the same weights by phase 4's rule: the kernel path no farther from
+    it than twice the plain bf16 path, plus 1e-3 of the scale."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fl_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    cfg = ModelConfig(name="probe", family="dense", num_layers=2,
+                      d_model=512, num_heads=16, num_kv_heads=2,
+                      head_dim=128, d_ff=1024, vocab_size=1024,
+                      qkv_bias=True)
+    c32 = cfg.replace(dtype="float32")
+    params = T.init_params(cfg, 0, device=cuda)
+    p32 = {k: ([{n: t.float() for n, t in b.items()} for b in v]
+               if k == "blocks" else v.float()) for k, v in params.items()}
+    g = torch.Generator(device=cuda).manual_seed(34)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=g,
+                         device=cuda, dtype=torch.int32)
+    cache = T.init_cache(cfg, 4, 512, device=cuda)
+    for key in ("k", "v"):
+        cache[key].normal_(generator=g)
+    cache["pos"].fill_(256)
+    dtoks = torch.randint(0, cfg.vocab_size, (4,), generator=g, device=cuda,
+                          dtype=torch.int32)
+
+    def rule(lk, lp, lr):
+        scale = lr.abs().max().item()
+        ek = (lk - lr).abs().max().item() / scale
+        ep = (lp - lr).abs().max().item() / scale
+        assert torch.isfinite(lk).all() and ek <= 2 * ep + 1e-3, (ek, ep)
+
+    with torch.inference_mode():
+        fl_ops.flash_attention.launches = 0
+        lk, _ = T.prefill_full(params, cfg, {"tokens": toks}, impl="kernel")
+        assert fl_ops.flash_attention.launches == cfg.num_layers
+        lp, _ = T.prefill_full(params, cfg, {"tokens": toks}, impl="plain")
+        lr, _ = T.prefill_full(p32, c32, {"tokens": toks}, impl="plain")
+        rule(lk, lp, lr)
+        caches = [{k: v.clone() for k, v in cache.items()} for _ in range(2)]
+        c32d = {k: (v.float() if v.is_floating_point() else v.clone())
+                for k, v in cache.items()}
+        dec_ops.decode_attention.launches = 0
+        dk, _ = T.decode_step(params, cfg, caches[0], dtoks, impl="kernel")
+        assert dec_ops.decode_attention.launches == cfg.num_layers
+        dp, _ = T.decode_step(params, cfg, caches[1], dtoks, impl="plain")
+        dr, _ = T.decode_step(p32, c32, c32d, dtoks, impl="plain")
+        rule(dk, dp, dr)

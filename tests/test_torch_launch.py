@@ -304,8 +304,8 @@ def test_launcher_sim_serves_what_the_reference_sim_serves(arch, flags,
 def test_launcher_refuses_models_larger_than_one_card(arch, monkeypatch,
                                                       capsys):
     """At full size their bf16 weights exceed one card's 80 GiB: the torch
-    backend exits at start-up naming the sharding slice, before any
-    parameter is allocated."""
+    backend exits at start-up, before any parameter is allocated, naming
+    the dry run that shows their sharding."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer
 
@@ -316,7 +316,8 @@ def test_launcher_refuses_models_larger_than_one_card(arch, monkeypatch,
     with pytest.raises(SystemExit):
         serve.main(["--arch", arch, "--device", "cpu", "--requests", "2"])
     err = capsys.readouterr().err
-    assert "sharding slice" in err and "80 GiB" in err
+    assert f"repro_torch.launch.dryrun --arch {arch}" in err \
+        and "80 GiB" in err
 
 
 def test_launcher_refuses_llava_naming_the_frontends_slice(capsys):

@@ -92,8 +92,8 @@ def test_granite_config_mirrors_reference():
     from argparse import Namespace
     from repro_torch.launch.serve import torch_refusal
     serve_args = Namespace(mode="disagg", scheduler="fcfs")
-    assert "sharding slice" in torch_refusal(get_config("kimi-k2-1t-a32b"),
-                                             serve_args)
+    assert "repro_torch.launch.dryrun --arch kimi-k2-1t-a32b" in \
+        torch_refusal(get_config("kimi-k2-1t-a32b"), serve_args)
     assert torch_refusal(get_smoke_config("kimi-k2-1t-a32b"),
                          serve_args) is None
     assert T.unported(cfg) is None and T.supports_paged(cfg)
