@@ -222,7 +222,16 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      ``AttentionTap`` (each kernel call against its plain version);
      last, the plain prefill on a one-rank NCCL mesh
      (``make_host_mesh``, DTensor parameters), whose logits must be
-     bit-equal to the plain prefill's without a mesh.
+     bit-equal to the plain prefill's without a mesh;
+ 35. the static analysis on the host: ``python -m repro_torch.analysis
+     --json`` over this checkout in a child process (no card, no jax);
+     fails unless it is ``ok``, checked one module per ``.py`` file under
+     ``src/`` and ``tests/``, and baselined as many findings as
+     ``baseline.json`` budgets, and unless a child process's import of
+     ``repro_torch.analysis.__main__`` and
+     ``repro_torch.serving.speculative`` leaves torch unloaded; prints
+     each pass's host milliseconds beside the card's name and power
+     limit. It launches no kernel.
 
 Phase 3 also holds flash, paged and dense decode at head dim 64 (granite's
 16/8 heads) against their plain versions at the serve's shapes and their
@@ -2619,6 +2628,52 @@ print(json.dumps(out))
 """
 
 
+def analysis_phase(smi: str) -> None:
+    """Phase 35: the port's static passes over this checkout, on the
+    host, and the import hygiene of the modules they keep torch-free."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--json"],
+        capture_output=True, text=True, env=host_env(), cwd=ROOT,
+        timeout=300)
+    try:
+        rec = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"analysis: exit {proc.returncode}, no JSON: "
+             f"{proc.stdout[-1000:]} {proc.stderr[-1000:]}")
+    n_files = sum(1 for top in ("src", "tests")
+                  for _, _, files in os.walk(os.path.join(ROOT, top))
+                  for f in files if f.endswith(".py"))
+    with open(os.path.join(SRC, "repro_torch", "analysis",
+                           "baseline.json")) as f:
+        budget = sum(int(e.get("count", 1)) for e in json.load(f)["accepted"])
+    passes = ", ".join(f"{name} {t * 1e3:.1f}"
+                       for name, t in rec["timings"].items())
+    log(f"# analysis: {rec['checked_modules']} modules ({n_files} files), "
+        f"{len(rec['violations'])} new, {len(rec['baselined'])} baselined "
+        f"(budget {budget}); per pass, ms of the host's clock: {passes} "
+        f"| {smi}")
+    if proc.returncode != 0 or not rec["ok"]:
+        fail(f"analysis: exit {proc.returncode}, new findings "
+             + json.dumps(rec["violations"])[:2000])
+    if rec["checked_modules"] != n_files:
+        fail(f"analysis: checked {rec['checked_modules']} modules of "
+             f"{n_files} .py files under src/ and tests/")
+    if len(rec["baselined"]) != budget:
+        fail(f"analysis: {len(rec['baselined'])} baselined findings against "
+             f"a budget of {budget}")
+    code = ("import sys, repro_torch.analysis.__main__, "
+            "repro_torch.serving.speculative; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax')))")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=host_env(), cwd=ROOT, timeout=120)
+    if proc.returncode != 0 or proc.stdout.strip() != "[]":
+        fail(f"analysis: importing the passes and speculative decoding "
+             f"loaded {proc.stdout.strip()[:500]} {proc.stderr[-500:]}")
+    log("# analysis: repro_torch.analysis.__main__ and "
+        "repro_torch.serving.speculative import without torch")
+
+
 def storage_bytes(torch, *trees) -> int:
     """Bytes of the distinct storages under nested dicts and lists."""
     seen = {}
@@ -3499,6 +3554,11 @@ def main() -> None:
     t0 = time.perf_counter()
     dryrun_card_phase(torch, dev, drive, get_config)
     log(f"# phase dryrun card: {time.perf_counter() - t0:.1f} s")
+
+    # 35) the static analysis on this host (no kernel, no card)
+    t0 = time.perf_counter()
+    analysis_phase(smi)
+    log(f"# phase analysis: {time.perf_counter() - t0:.1f} s")
 
     def total(name):
         return sum(n[name] for n in by_path.values())

@@ -1,8 +1,8 @@
 """Virtual-time sanitizer: online invariant checking for the event loop.
 
 The port's copy of ``repro.analysis.sanitizer``, unchanged (the same
-``REPRO_SANITIZE`` gate). It is the one module of ``repro.analysis`` the
-port keeps; the static passes stay with the reference.
+``REPRO_SANITIZE`` gate). The static passes beside it are the runtime
+checks' twins.
 
 ``ClusterSanitizer`` hooks into ``serving.cluster.Cluster`` (opt-in:
 ``Cluster(sanitize=True)`` or ``REPRO_SANITIZE=1``) and asserts, on every

@@ -19,13 +19,12 @@ a near-tie may go the other way.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import TYPE_CHECKING, List, Tuple
 
 import numpy as np
-import torch
 
-from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
+if TYPE_CHECKING:
+    from repro_torch.models.config import ModelConfig
 
 
 def speculative_decode(target_params, target_cfg: ModelConfig,
@@ -33,6 +32,12 @@ def speculative_decode(target_params, target_cfg: ModelConfig,
                        prompt: np.ndarray, n_tokens: int, k: int = 4, *,
                        impl: str = "kernel") -> Tuple[List[int], dict]:
     """Greedy speculative decode of ``n_tokens``. Returns (tokens, stats)."""
+    # torch and the model enter here, not at module scope: the serving
+    # package stays importable without torch (import-policy protected set)
+    import torch
+
+    from repro_torch.models import transformer as T
+
     dev = target_params["embed"].device
     V = target_cfg.vocab_size
     cap = len(prompt) + n_tokens + k + 1

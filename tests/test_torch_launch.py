@@ -71,6 +71,19 @@ def test_launcher_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "clean"
 
 
+def test_speculative_import_leaves_torch_and_jax_unloaded():
+    """Speculative decoding sits in the serving runtime's torch-free set:
+    torch and the model enter inside ``speculative_decode``."""
+    code = ("import sys, repro_torch.serving.speculative; "
+            "loaded = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'repro')); "
+            "assert not loaded, loaded; print('clean')")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
 def test_launcher_serves_smoke_config_on_cpu():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
