@@ -51,8 +51,12 @@ kernels), persisted to ``--calibration-path`` and reused by later sim
 runs; a chip with no fit there runs on the raw roofline, and says so.
 ``--trace`` replays a JSONL trace (overriding ``--workload``);
 ``--trace-out`` attaches a span ``TraceRecorder`` and writes a
-Chrome/Perfetto trace. ``REPRO_SANITIZE=1`` turns on the cluster's
-invariant sanitizer.
+Chrome/Perfetto trace on the cluster's virtual clock: each step's
+measured time, but no handoff copy, no time of the loop itself and no
+idle gap. What the card did, and what the program was doing meanwhile,
+is a ``torch.profiler`` trace, in which the engine and the model open
+their spans (``serving.tracing.span``). ``REPRO_SANITIZE=1`` turns on the
+cluster's invariant sanitizer.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --backend sim \
       --calibrate --requests 16 --isl 512 --osl 64 --slots 8
@@ -190,7 +194,10 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
                     help="attach a span TraceRecorder and write a Chrome/"
                     "Perfetto trace (one track per engine, async slices "
-                    "per request, counter tracks) to this path")
+                    "per request, counter tracks) to this path; on the "
+                    "virtual clock, so without handoff, loop or idle time "
+                    "(the card's timeline: a torch.profiler trace, which "
+                    "holds the engine's and the model's spans)")
     args = ap.parse_args(argv)
     if args.calibrate and args.backend != "sim":
         ap.error("--calibrate fits the sim roofline scale; pass "

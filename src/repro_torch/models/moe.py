@@ -42,6 +42,12 @@ slot axis, in the reference's slot order (ascending expert). The slot ->
 token table is written with ``index_put_``; its duplicate indices all land
 in the drop column C, cut off before use, and all write the same
 sentinel.
+
+Under a ``torch.profiler`` session ``_local_moe``'s four phases are spans
+on the profiler's clock (``serving.tracing.span``): ``repro_torch.moe.
+route`` (the router), ``.dispatch`` (slots, the slot table and the
+gather), ``.experts`` (the three batched products) and ``.combine`` (the
+gates and the gather-sum).
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from repro_torch.parallel.sharding import (constrain, current_mesh,
                                            mesh_dims, mesh_shape,
                                            placements_for,
                                            shard_map_placements)
+from repro_torch.serving.tracing import span
 
 f32 = torch.float32
 
@@ -106,55 +113,62 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg: MoEConfig,
     C = expert_capacity(T, cfg)
     dev = x.device
 
-    gates, mask, aux_loss, z_loss = _route(x, router_w, cfg)
+    with span("repro_torch.moe.route"):
+        gates, mask, aux_loss, z_loss = _route(x, router_w, cfg)
 
-    # position of token t in expert e's buffer (cumsum over tokens)
-    pos = torch.cumsum(mask, dim=0) - 1                         # [T,E]
-    keep = (mask == 1) & (pos < C)
-    dropped = (mask.sum() - keep.sum()).to(f32)
+    with span("repro_torch.moe.dispatch"):
+        # position of token t in expert e's buffer (cumsum over tokens)
+        pos = torch.cumsum(mask, dim=0) - 1                     # [T,E]
+        keep = (mask == 1) & (pos < C)
+        dropped = (mask.sum() - keep.sum()).to(f32)
 
-    # slot -> token table, sentinel T = padded zero row; every dropped or
-    # unrouted pair writes T into the drop slot C, which is cut off
-    tok_ids = torch.arange(T, device=dev)[:, None].expand(T, E)
-    e_ids = torch.arange(E, device=dev)[None, :].expand(T, E)
-    safe_pos = torch.where(keep, pos, C)
-    slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=dev)
-    slot_tok.index_put_((e_ids.reshape(-1), safe_pos.reshape(-1)),
-                        torch.where(keep, tok_ids, T).reshape(-1))
-    # this rank's experts' slots [E_local*C]
-    slot_tok = slot_tok[e_off:e_off + E_local, :C].reshape(-1)
+        # slot -> token table, sentinel T = padded zero row; every dropped
+        # or unrouted pair writes T into the drop slot C, which is cut off
+        tok_ids = torch.arange(T, device=dev)[:, None].expand(T, E)
+        e_ids = torch.arange(E, device=dev)[None, :].expand(T, E)
+        safe_pos = torch.where(keep, pos, C)
+        slot_tok = torch.full((E, C + 1), T, dtype=torch.long, device=dev)
+        slot_tok.index_put_((e_ids.reshape(-1), safe_pos.reshape(-1)),
+                            torch.where(keep, tok_ids, T).reshape(-1))
+        # this rank's experts' slots [E_local*C]
+        slot_tok = slot_tok[e_off:e_off + E_local, :C].reshape(-1)
 
-    # gather expert inputs [E_local, C, D]
-    x_pad = torch.cat([x, x.new_zeros((1, D))])
-    xe = x_pad.index_select(0, slot_tok).reshape(E_local, C, D)
+        # gather expert inputs [E_local, C, D]
+        x_pad = torch.cat([x, x.new_zeros((1, D))])
+        xe = x_pad.index_select(0, slot_tok).reshape(E_local, C, D)
 
-    # expert SwiGLU as three batched products
-    h = torch.bmm(xe, wg)
-    u = torch.bmm(xe, wu)
-    h = F.silu(h.to(f32)).to(x.dtype) * u
-    ye = torch.bmm(h, wd)                                 # [E_local,C,D]
+    with span("repro_torch.moe.experts"):
+        # expert SwiGLU as three batched products
+        h = torch.bmm(xe, wg)
+        u = torch.bmm(xe, wu)
+        h = F.silu(h.to(f32)).to(x.dtype) * u
+        ye = torch.bmm(h, wd)                             # [E_local,C,D]
 
-    # per-slot gate value: gates[token, expert]
-    gates_pad = torch.cat([gates, gates.new_zeros((1, E))])
-    slot_gate = gates_pad[slot_tok.reshape(E_local, C),
-                          e_off + torch.arange(E_local, device=dev)[:, None]]
+    with span("repro_torch.moe.combine"):
+        # per-slot gate value: gates[token, expert]
+        gates_pad = torch.cat([gates, gates.new_zeros((1, E))])
+        slot_gate = gates_pad[slot_tok.reshape(E_local, C),
+                              e_off + torch.arange(E_local,
+                                                   device=dev)[:, None]]
 
-    # combine in fp32 without atomics: token t's k routed experts in
-    # ascending order (a stable sort of its mask row puts them first), each
-    # pair's slot (e - e_off)*C + pos, or the zero row E_local*C where it
-    # was dropped or its expert is another rank's; the gated outputs
-    # gathered [T, k, D] and summed over the slot axis
-    k = cfg.top_k
-    t_exp = torch.sort(mask, dim=1, descending=True, stable=True)[1][:, :k]
-    mine = keep.gather(1, t_exp) & (t_exp >= e_off) \
-        & (t_exp < e_off + E_local)
-    t_slot = torch.where(mine, (t_exp - e_off) * C + pos.gather(1, t_exp),
-                         E_local * C)
-    yg = (ye.to(f32) * slot_gate[..., None]).reshape(E_local * C, D)
-    yg = torch.cat([yg, yg.new_zeros((1, D))])
-    y = yg[t_slot].sum(dim=1)
-    if not combine_fp32:
-        y = y.to(x.dtype)
+        # combine in fp32 without atomics: token t's k routed experts in
+        # ascending order (a stable sort of its mask row puts them first),
+        # each pair's slot (e - e_off)*C + pos, or the zero row E_local*C
+        # where it was dropped or its expert is another rank's; the gated
+        # outputs gathered [T, k, D] and summed over the slot axis
+        k = cfg.top_k
+        t_exp = torch.sort(mask, dim=1, descending=True,
+                           stable=True)[1][:, :k]
+        mine = keep.gather(1, t_exp) & (t_exp >= e_off) \
+            & (t_exp < e_off + E_local)
+        t_slot = torch.where(mine,
+                             (t_exp - e_off) * C + pos.gather(1, t_exp),
+                             E_local * C)
+        yg = (ye.to(f32) * slot_gate[..., None]).reshape(E_local * C, D)
+        yg = torch.cat([yg, yg.new_zeros((1, D))])
+        y = yg[t_slot].sum(dim=1)
+        if not combine_fp32:
+            y = y.to(x.dtype)
     aux = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
            "moe_dropped": dropped}
     return y, aux

@@ -81,6 +81,14 @@ reference either (its training attention is XLA's blocked online softmax,
 
 A sliding window on the attn block comes with a later slice
 (``unported`` says so).
+
+Under a ``torch.profiler`` session every serving path's layer is two
+spans on the profiler's clock (``serving.tracing.span``):
+``repro_torch.model.mixer`` (the attention norm through the residual add,
+or the RWKV block) and ``repro_torch.model.ffn`` or ``.moe``
+(``_ffn_aux``: its norm through its residual add), with
+``repro_torch.model.logits`` around the head. With no profiler running a
+span is one check.
 """
 from __future__ import annotations
 
@@ -105,6 +113,7 @@ from repro_torch.parallel.sharding import (constrain, current_mesh,
                                            mesh_coordinate, mesh_dims, pin,
                                            placements_for,
                                            shard_map_placements)
+from repro_torch.serving.tracing import span
 
 f32 = torch.float32
 IMPLS = ("kernel", "plain", "xla")
@@ -360,17 +369,18 @@ def _logits(params, cfg: ModelConfig, x):
             return torch.mm(x, head, out_dtype=f32)
         return x.float() @ head.float()
 
-    if _sharded(head):      # rows over dp, vocab over tp: each rank's block
-        mesh = current_mesh()
-        x_pl = placements_for(x.shape, "dp", None)
-        h_pl = placements_for(head.shape, None, "vocab")
-        out_pl = tuple(Shard(1) if p == Shard(1) else x_pl[i]
-                       for i, p in enumerate(h_pl))
-        logits = shard_map_placements(product, (x, head), (x_pl, h_pl),
-                                      out_pl)
-    else:
-        logits = product(x, head)
-    return constrain(_mask_padded_vocab(logits, cfg), "dp", "vocab")
+    with span("repro_torch.model.logits"):
+        if _sharded(head):  # rows over dp, vocab over tp: each rank's block
+            mesh = current_mesh()
+            x_pl = placements_for(x.shape, "dp", None)
+            h_pl = placements_for(head.shape, None, "vocab")
+            out_pl = tuple(Shard(1) if p == Shard(1) else x_pl[i]
+                           for i, p in enumerate(h_pl))
+            logits = shard_map_placements(product, (x, head), (x_pl, h_pl),
+                                          out_pl)
+        else:
+            logits = product(x, head)
+        return constrain(_mask_padded_vocab(logits, cfg), "dp", "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -691,13 +701,15 @@ def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
 def _ffn_aux(p, x, cfg: ModelConfig):
     """The FFN sub-block with its residual: the dense SwiGLU, or the MoE
     FFN where ``cfg.moe`` is set. Returns (x, the MoE metrics or {})."""
-    xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    if cfg.moe is not None:
-        y, aux = moe.moe_ffn(xn, p["moe"], cfg.moe,
-                             combine_fp32=cfg.moe_combine_fp32,
-                             expert_tp=cfg.moe_expert_tp)
-        return x + y, aux
-    return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"]), {}
+    with span("repro_torch.model.ffn" if cfg.moe is None
+              else "repro_torch.model.moe"):
+        xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        if cfg.moe is not None:
+            y, aux = moe.moe_ffn(xn, p["moe"], cfg.moe,
+                                 combine_fp32=cfg.moe_combine_fp32,
+                                 expert_tp=cfg.moe_expert_tp)
+            return x + y, aux
+        return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"]), {}
 
 
 def _ffn(p, x, cfg: ModelConfig):
@@ -729,26 +741,27 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     kv-quant: the attention itself ran on the unquantized K/V), an RWKV
     layer's final state, or a hybrid layer's K/V (the W-row ring under a
     sliding window) with its SSM state ``ssm_h``/``conv``."""
-    if cfg.block == "rwkv":
-        state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
-        return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
-    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
-    entry = {"k": k, "v": v}
-    if cfg.kv_quant:
-        entry["k"], entry["k_scale"] = _kv_quantize(k)
-        entry["v"], entry["v_scale"] = _kv_quantize(v)
-    if cfg.block == "hybrid":
-        ssm_out, state = ssm.ssm_apply(
-            p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
-                                             device=x.device), cfg)
-        attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
-        if cfg.sliding_window:      # (the reference's placement needs W)
-            entry = {kk: _ring(t, cfg.sliding_window)
-                     for kk, t in entry.items()}
-        entry.update(ssm_h=state["h"], conv=state["conv"])
-    x = _ffn(p, x + attn_out, cfg)
-    return x, entry
+    with span("repro_torch.model.mixer"):
+        if cfg.block == "rwkv":
+            state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
+            return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
+        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+        attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
+        entry = {"k": k, "v": v}
+        if cfg.kv_quant:
+            entry["k"], entry["k_scale"] = _kv_quantize(k)
+            entry["v"], entry["v_scale"] = _kv_quantize(v)
+        if cfg.block == "hybrid":
+            ssm_out, state = ssm.ssm_apply(
+                p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
+                                                 device=x.device), cfg)
+            attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
+            if cfg.sliding_window:  # (the reference's placement needs W)
+                entry = {kk: _ring(t, cfg.sliding_window)
+                         for kk, t in entry.items()}
+            entry.update(ssm_h=state["h"], conv=state["conv"])
+        x = x + attn_out
+    return _ffn(p, x, cfg), entry
 
 
 def _stacked(t, n: int):
@@ -858,19 +871,22 @@ def _cache_keys(cfg: ModelConfig):
 def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
     """One layer of a decode step; ``entry`` is this layer's cache views,
     written in place."""
-    if cfg.block == "rwkv":
-        x1, _ = rwkv6.rwkv_block_step(p, x1, entry, cfg, impl=impl)
-        return x1
-    xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
-    attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
-                              impl=impl, scales=entry)
-    if cfg.block == "hybrid":
-        ssm_out, state = ssm.ssm_step(
-            p["ssm"], xn, {"h": entry["ssm_h"], "conv": entry["conv"]}, cfg)
-        entry["ssm_h"].copy_(state["h"])
-        entry["conv"].copy_(state["conv"])
-        attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
-    return _ffn(p, x1 + attn_out, cfg)
+    with span("repro_torch.model.mixer"):
+        if cfg.block == "rwkv":
+            x1, _ = rwkv6.rwkv_block_step(p, x1, entry, cfg, impl=impl)
+            return x1
+        xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
+        attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
+                                  impl=impl, scales=entry)
+        if cfg.block == "hybrid":
+            ssm_out, state = ssm.ssm_step(
+                p["ssm"], xn, {"h": entry["ssm_h"], "conv": entry["conv"]},
+                cfg)
+            entry["ssm_h"].copy_(state["h"])
+            entry["conv"].copy_(state["conv"])
+            attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
+        x1 = x1 + attn_out
+    return _ffn(p, x1, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens,
@@ -916,10 +932,12 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
     for lo in range(start, S, chunk_size):
         out = x[:, lo:lo + chunk_size]
         for i, p in enumerate(params["blocks"]):
-            xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
-            attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i],
-                                     cache["v"][i], lo, impl=impl)
-            out = _ffn(p, out + attn_out, cfg)
+            with span("repro_torch.model.mixer"):
+                xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
+                attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i],
+                                         cache["v"][i], lo, impl=impl)
+                out = out + attn_out
+            out = _ffn(p, out, cfg)
     out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, out[:, -1]), {
         "k": cache["k"], "v": cache["v"],
@@ -1003,10 +1021,12 @@ def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
     x = embed_tokens(params, cfg, tokens[:, None])
     pk, pv = pool["k"], pool["v"]
     for p, tbl in zip(params["blocks"], tables):
-        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv, tbl, pos,
-                                        impl=impl)
-        x = _ffn(p, x + attn_out, cfg)
+        with span("repro_torch.model.mixer"):
+            xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+            attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv, tbl, pos,
+                                            impl=impl)
+            x = x + attn_out
+        x = _ffn(p, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, 0]), pool, pos + 1
 
@@ -1049,26 +1069,30 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
         positions = lo + torch.arange(chunk_size, device=x.device)[None, :]
         ctx = lo + chunk_size
         for p, tbl in zip(params["blocks"], tables):
-            xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
-            q, k, v = _qkv(p, xn, cfg, positions)
-            wids = tbl[lo // Bs:lo // Bs + cb].long()
-            pk.index_copy_(0, wids, k[0].reshape(cb, Bs, Hkvp, dh).to(pk.dtype))
-            pv.index_copy_(0, wids, v[0].reshape(cb, Bs, Hkvp, dh).to(pv.dtype))
-            if impl == "kernel":
-                _kernel_ok(cfg)
-                live = tbl[:ctx // Bs].long()
-                o = flash_attention(q.contiguous(),
-                                    pk[live].reshape(1, ctx, Hkvp, dh),
-                                    pv[live].reshape(1, ctx, Hkvp, dh),
-                                    causal=True, q_offset=lo)
-            else:
-                kd = pk[tbl.long()].reshape(1, W, Hkvp, dh)
-                vd = pv[tbl.long()].reshape(1, W, Hkvp, dh)
-                mask = (torch.arange(W, device=x.device)[None, :]
-                        <= positions[0][:, None])
-                o = _chunk_attend(q, L.expand_kv(kd, hmap),
-                                  L.expand_kv(vd, hmap), mask, cfg)
-            out = _ffn(p, out + _attn_out(p, o.to(out.dtype), cfg), cfg)
+            with span("repro_torch.model.mixer"):
+                xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
+                q, k, v = _qkv(p, xn, cfg, positions)
+                wids = tbl[lo // Bs:lo // Bs + cb].long()
+                pk.index_copy_(0, wids,
+                               k[0].reshape(cb, Bs, Hkvp, dh).to(pk.dtype))
+                pv.index_copy_(0, wids,
+                               v[0].reshape(cb, Bs, Hkvp, dh).to(pv.dtype))
+                if impl == "kernel":
+                    _kernel_ok(cfg)
+                    live = tbl[:ctx // Bs].long()
+                    o = flash_attention(q.contiguous(),
+                                        pk[live].reshape(1, ctx, Hkvp, dh),
+                                        pv[live].reshape(1, ctx, Hkvp, dh),
+                                        causal=True, q_offset=lo)
+                else:
+                    kd = pk[tbl.long()].reshape(1, W, Hkvp, dh)
+                    vd = pv[tbl.long()].reshape(1, W, Hkvp, dh)
+                    mask = (torch.arange(W, device=x.device)[None, :]
+                            <= positions[0][:, None])
+                    o = _chunk_attend(q, L.expand_kv(kd, hmap),
+                                      L.expand_kv(vd, hmap), mask, cfg)
+                out = out + _attn_out(p, o.to(out.dtype), cfg)
+            out = _ffn(p, out, cfg)
     out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, out[:, -1]), pool
 

@@ -53,6 +53,13 @@ card the port runs on, so an ``h100`` engine's virtual clock reads measured
 H100 time unscaled (the JAX engine's reference chip is ``TPU_V5E``). Every
 timed window ends in ``torch.cuda.synchronize()``, so the clock measures
 the step and not its enqueue.
+
+Under a ``torch.profiler`` session each step and its phases are spans on
+the profiler's clock (``serving.tracing.span``): ``repro_torch.engine.
+prefill`` (``.payload``, ``.readback``), ``.insert`` and ``.decode``
+(``.prepare``: the paged block growth, window and uploads; ``.readback``:
+the argmax, its copy to the host and the closing synchronise, where the
+host waits on the device), around the model's own spans.
 """
 from __future__ import annotations
 
@@ -69,6 +76,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.blocks import BlockAllocator, BlockPoolExhausted
 from repro_torch.serving.common import EngineFailure, PrefixCache, StepLog
+from repro_torch.serving.tracing import span
 
 
 class PagedCache:
@@ -295,17 +303,20 @@ class Engine:
         Bs = self.block_size
         Sb = -(-S // Bs) * Bs
         blocks = {}
-        for kk in ("k", "v"):
-            row = cache[kk][:, 0]                         # [L, S, Hkvp, dh]
-            if Sb > S:
-                row = torch.cat([row, row.new_zeros(
-                    (row.shape[0], Sb - S) + tuple(row.shape[2:]))], dim=1)
-            blocks[kk] = row.reshape(row.shape[0], Sb // Bs, Bs,
-                                     *row.shape[2:])
+        with span("repro_torch.engine.prefill.payload"):
+            for kk in ("k", "v"):
+                row = cache[kk][:, 0]                     # [L, S, Hkvp, dh]
+                if Sb > S:
+                    row = torch.cat([row, row.new_zeros(
+                        (row.shape[0], Sb - S) + tuple(row.shape[2:]))],
+                        dim=1)
+                blocks[kk] = row.reshape(row.shape[0], Sb // Bs, Bs,
+                                         *row.shape[2:])
         return logits, blocks
 
     def _first_token(self, logits) -> int:
-        return int(torch.argmax(logits[0, :self.cfg.vocab_size]))
+        with span("repro_torch.engine.prefill.readback"):
+            return int(torch.argmax(logits[0, :self.cfg.vocab_size]))
 
     @torch.inference_mode()
     def prefill(self, prompt: np.ndarray) -> Tuple[int, Any]:
@@ -314,17 +325,18 @@ class Engine:
         K/V for the attention family, a W-row ring and the SSM state for a
         windowed hybrid, the state for RWKV)."""
         self._check()
-        t0 = time.perf_counter()
-        tokens = self._tokens(prompt)
-        if self.paged:
-            logits, blocks = self._prefill_payload(tokens)
-            payload = PagedCache(blocks, len(prompt))
-        else:
-            logits, payload = T.prefill_full(
-                self.params, self.cfg, {"tokens": tokens},
-                capacity=self.capacity, impl=self.impl)
-        tok = self._first_token(logits)
-        self.prefill_s += self._tick(t0)
+        with span("repro_torch.engine.prefill"):
+            t0 = time.perf_counter()
+            tokens = self._tokens(prompt)
+            if self.paged:
+                logits, blocks = self._prefill_payload(tokens)
+                payload = PagedCache(blocks, len(prompt))
+            else:
+                logits, payload = T.prefill_full(
+                    self.params, self.cfg, {"tokens": tokens},
+                    capacity=self.capacity, impl=self.impl)
+            tok = self._first_token(logits)
+            self.prefill_s += self._tick(t0)
         self.prefills += 1
         return tok, payload
 
@@ -338,12 +350,13 @@ class Engine:
         cached prompt prefix when a PrefixCache is attached. Attention
         family only: the model refuses an RWKV prompt."""
         self._check()
-        if self.paged:
-            tok, payload, n_chunks = self._prefill_chunked_paged(prompt,
-                                                                 chunk)
-        else:
-            tok, payload, n_chunks = self._prefill_chunked_dense(prompt,
-                                                                 chunk)
+        with span("repro_torch.engine.prefill"):
+            if self.paged:
+                tok, payload, n_chunks = self._prefill_chunked_paged(prompt,
+                                                                     chunk)
+            else:
+                tok, payload, n_chunks = self._prefill_chunked_dense(prompt,
+                                                                     chunk)
         if on_chunk:
             for i in range(n_chunks):
                 on_chunk(i, max(n_chunks, 1))
@@ -455,25 +468,26 @@ class Engine:
         if not self.paged and isinstance(payload, PagedCache):
             raise TypeError("dense engine got a paged handoff payload; "
                             "mixed-layout fleets are unsupported")
-        slot = self._free.pop()
-        if self.paged:
-            nbk = payload.blocks["k"].shape[1]
-            Lr = self.cfg.num_layers
-            try:
-                self._reserve(Lr * nbk)
-                ids = np.asarray(self._alloc.alloc(Lr * nbk),
-                                 np.int32).reshape(Lr, nbk)
-            except BlockPoolExhausted:
-                self._free.append(slot)
-                raise
-            T.scatter_blocks(self.pool,
-                             torch.as_tensor(ids, device=self.device),
-                             payload.blocks)
-            self._tables[:, slot, :] = 0
-            self._tables[:, slot, :nbk] = ids
-            self._pos[slot] = payload.length
-        else:
-            self._insert_dense(slot, payload)
+        with span("repro_torch.engine.insert"):
+            slot = self._free.pop()
+            if self.paged:
+                nbk = payload.blocks["k"].shape[1]
+                Lr = self.cfg.num_layers
+                try:
+                    self._reserve(Lr * nbk)
+                    ids = np.asarray(self._alloc.alloc(Lr * nbk),
+                                     np.int32).reshape(Lr, nbk)
+                except BlockPoolExhausted:
+                    self._free.append(slot)
+                    raise
+                T.scatter_blocks(self.pool,
+                                 torch.as_tensor(ids, device=self.device),
+                                 payload.blocks)
+                self._tables[:, slot, :] = 0
+                self._tables[:, slot, :nbk] = ids
+                self._pos[slot] = payload.length
+            else:
+                self._insert_dense(slot, payload)
         self.slot_req[slot] = req
         req.slot = slot
         req.engine_id = self.engine_id
@@ -522,46 +536,54 @@ class Engine:
     def decode_step(self, tokens_by_slot: Dict[int, int]) -> Dict[int, int]:
         """One token for every active slot. Returns slot -> next token."""
         self._check()
-        if self.paged:
-            return self._decode_step_paged(tokens_by_slot)
-        t0 = time.perf_counter()
-        logits, self.cache = T.decode_step(
-            self.params, self.cfg, self.cache,
-            self._step_tokens(tokens_by_slot), impl=self.impl)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1).tolist()
-        self.decode_s += self._tick(t0)
+        with span("repro_torch.engine.decode"):
+            if self.paged:
+                return self._decode_step_paged(tokens_by_slot)
+            t0 = time.perf_counter()
+            logits, self.cache = T.decode_step(
+                self.params, self.cfg, self.cache,
+                self._step_tokens(tokens_by_slot), impl=self.impl)
+            with span("repro_torch.engine.decode.readback"):
+                nxt = torch.argmax(logits[:, :self.cfg.vocab_size],
+                                   dim=-1).tolist()
+                self.decode_s += self._tick(t0)
         self.decode_steps += 1
         return {s: int(nxt[s]) for s in tokens_by_slot}
 
     def _decode_step_paged(self, tokens_by_slot: Dict[int, int]):
         Bs = self.block_size
         Lr = self.cfg.num_layers
-        # grow: a slot whose next write crosses a block boundary gets a
-        # fresh block per layer before the step (O(1) host work)
-        for s in tokens_by_slot:
-            bi = int(self._pos[s]) // Bs
-            if bi < self._nb_max and self._tables[0, s, bi] == 0:
-                self._reserve(Lr)
-                self._tables[:, s, bi] = self._alloc.alloc(Lr)
-        # pow2-bucketed window over the active context: the attention width
-        # tracks what is live instead of the full per-slot capacity
-        mx = max(int(self._pos[s]) for s in tokens_by_slot)
-        nb = 1
-        while nb * Bs <= mx:
-            nb *= 2
-        nb = min(nb, self._nb_max)
-        t0 = time.perf_counter()
-        dev = self.device
-        tables = torch.as_tensor(np.ascontiguousarray(self._tables[:, :, :nb]),
-                                 device=dev)
+        with span("repro_torch.engine.decode.prepare"):
+            # grow: a slot whose next write crosses a block boundary gets a
+            # fresh block per layer before the step (O(1) host work)
+            for s in tokens_by_slot:
+                bi = int(self._pos[s]) // Bs
+                if bi < self._nb_max and self._tables[0, s, bi] == 0:
+                    self._reserve(Lr)
+                    self._tables[:, s, bi] = self._alloc.alloc(Lr)
+            # pow2-bucketed window over the active context: the attention
+            # width tracks what is live instead of the full per-slot
+            # capacity
+            mx = max(int(self._pos[s]) for s in tokens_by_slot)
+            nb = 1
+            while nb * Bs <= mx:
+                nb *= 2
+            nb = min(nb, self._nb_max)
+            t0 = time.perf_counter()
+            dev = self.device
+            tables = torch.as_tensor(
+                np.ascontiguousarray(self._tables[:, :, :nb]), device=dev)
+            pos = torch.as_tensor(self._pos, device=dev)
+            toks = self._step_tokens(tokens_by_slot)
         logits, self.pool, _ = T.decode_step_paged(
-            self.params, self.cfg, self.pool, tables,
-            torch.as_tensor(self._pos, device=dev),
-            self._step_tokens(tokens_by_slot), impl=self.impl)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1).tolist()
-        for s in tokens_by_slot:
-            self._pos[s] += 1
-        self.decode_s += self._tick(t0)
+            self.params, self.cfg, self.pool, tables, pos, toks,
+            impl=self.impl)
+        with span("repro_torch.engine.decode.readback"):
+            nxt = torch.argmax(logits[:, :self.cfg.vocab_size],
+                               dim=-1).tolist()
+            for s in tokens_by_slot:
+                self._pos[s] += 1
+            self.decode_s += self._tick(t0)
         self.decode_steps += 1
         return {s: int(nxt[s]) for s in tokens_by_slot}
 

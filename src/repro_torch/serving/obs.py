@@ -1,6 +1,8 @@
-"""Trace consumers: Chrome/Perfetto export, schema validation, flight dumps.
+"""Trace consumers: Chrome/Perfetto export and schema validation.
 
-The port's copy of ``repro.serving.obs``, unchanged.
+The port's copy of ``repro.serving.obs``, unchanged but for the flight
+dump's file writer, which nothing of the port called (the dumps stay in
+``TraceRecorder.dumps`` and in the sanitizer's message).
 
 ``serving.tracing.TraceRecorder`` captures the event stream; this module
 renders it. ``perfetto_trace`` builds a Chrome trace-event JSON object
@@ -34,7 +36,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["request_phases", "perfetto_trace", "validate_trace",
-           "export_perfetto", "export_flight"]
+           "export_perfetto"]
 
 PHASES = ("queue", "prefill", "transfer", "decode")
 _PH_TYPES = ("M", "X", "b", "e", "C", "i")
@@ -250,13 +252,3 @@ def export_perfetto(recorder, path: str, *,
     with open(path, "w") as f:
         json.dump(trace, f, sort_keys=True)
     return counts
-
-
-def export_flight(recorder, path: str) -> int:
-    """Write the flight-recorder dump log (reason, virtual time, recent
-    transition ring per dump); returns the number of dumps written."""
-    payload = {"dumps": recorder.flight.dumps,
-               "dropped_dumps": recorder.flight.dropped_dumps}
-    with open(path, "w") as f:
-        json.dump(payload, f, sort_keys=True, default=repr)
-    return len(recorder.flight.dumps)

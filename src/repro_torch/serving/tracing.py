@@ -1,7 +1,10 @@
-"""Structured span/event tracing for the serving runtime (virtual time).
+"""Structured span/event tracing for the serving runtime: the virtual
+clock's lifecycle recorder, and ``span``, the program's ranges on the
+profiler's clock.
 
 The port's copy of ``repro.serving.tracing``, unchanged but for its
-imports of the port's own modules.
+imports of the port's own modules and for ``span`` (the last section
+below), which the reference has not.
 
 ``TraceRecorder`` is the observability seam of ``serving.cluster.Cluster``:
 the event loop calls the same narrow hook surface the sanitizer uses
@@ -44,9 +47,29 @@ the hot path runs the exact ``is not None`` guard the hotpath budget
 (``analysis/hotpath.py``) already audits — zero allocations, zero calls.
 The fleet-scan loops inside ``TraceRecorder`` itself are *enabled-path
 only* and carry annotated ``why`` entries in ``analysis/baseline.json``.
+
+Everything above is on the virtual clock: it holds no handoff copy, no
+time of the loop itself and no idle gap, and nothing on it can be set
+against the card's kernels. The device-clock half is ``span(name)``: a
+context manager that the engine (``serving/engine.py``) and the model
+(``models/transformer.py``, ``models/moe.py``) open at fixed sites, each
+with one fixed name that starts with ``repro_torch.`` (the engine's
+``prefill``, ``insert`` and ``decode`` steps and their phases, each
+layer's ``model.mixer`` and ``model.ffn`` or ``model.moe``, the MoE FFN's
+``moe.route``/``.dispatch``/``.experts``/``.combine``, the head's
+``model.logits``). While a ``torch.profiler`` session records, a span is
+a function-scope range of the profiler's own: kept by the profiler on
+its host timeline, on the clock of the device activities of the same
+trace, and, unlike ``torch.profiler.record_function``'s user-scope
+range, not copied onto the device's timeline. With no profiler running
+a span costs one check and returns a shared no-op context: no range, no
+allocation. The program keeps no buffer of its own, reads no clock and
+exports nothing: the profiler's trace is the record. This module stays
+torch-free at import; torch is bound on the first ``span``.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -54,7 +77,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from repro_torch.serving.metrics import WindowedRate
 
 __all__ = ["NullRecorder", "TraceRecorder", "FlightRecorder",
-           "LIFECYCLE_KINDS", "describe_engine"]
+           "LIFECYCLE_KINDS", "describe_engine", "span"]
 
 # request-lifecycle event kinds: ordered identically across backends when
 # schedules match (the structural-parity surface). Time-driven kinds
@@ -343,3 +366,29 @@ def _digest(events, *, content: bool = True) -> str:
         h.update(repr(row).encode())
         h.update(b"\n")
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock
+
+_NO_SPAN = contextlib.nullcontext()
+_profiler = None        # torch.autograd.profiler, bound by the first span
+_range = None           # the profiler's function-scope range
+
+
+def _bind_profiler():
+    global _profiler, _range
+    import torch.autograd.profiler as profiler
+    from torch._C._profiler import _RecordFunctionFast
+    _range = _RecordFunctionFast
+    _profiler = profiler
+    return profiler
+
+
+def span(name: str):
+    """A range named ``name`` on the profiler's timeline while a
+    ``torch.profiler`` session records (host only, never copied onto the
+    device's timeline); otherwise a shared no-op context."""
+    if not (_profiler or _bind_profiler())._is_profiler_enabled:
+        return _NO_SPAN
+    return _range(name)

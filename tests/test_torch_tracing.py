@@ -33,14 +33,14 @@ from repro_torch.analysis.sanitizer import (ClusterSanitizer, SanitizerError,
                                             assert_stream_parity,
                                             sanitize_enabled_by_env)
 from repro_torch.core.paper_models import LLAMA31_8B
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.serving.backends import init_torch_params, make_engine
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.metrics import (QuantileSketch, StreamingMetrics,
                                          WindowedRate)
-from repro_torch.serving.obs import (export_flight, export_perfetto,
-                                     perfetto_trace, request_phases,
-                                     validate_trace)
+from repro_torch.serving import tracing
+from repro_torch.serving.obs import (export_perfetto, perfetto_trace,
+                                     request_phases, validate_trace)
 from repro_torch.serving.request import Request
 from repro_torch.serving.simengine import SimEngine
 from repro_torch.serving.tracing import (FlightRecorder, NullRecorder,
@@ -132,7 +132,7 @@ def test_null_recorder_collapses_to_none():
     nr.on_round(None)
 
 
-def test_flight_recorder_ring_and_dumps(tmp_path):
+def test_flight_recorder_ring_and_dumps():
     fr = FlightRecorder(limit=4, max_dumps=2)
     for i in range(10):
         fr.record(("arrival", float(i), i))
@@ -161,9 +161,6 @@ def test_flight_recorder_ring_and_dumps(tmp_path):
     assert len(dumps) == 1 and dumps[0]["events"]
     assert f"engine_id={eng.engine_id}" in dumps[0]["detail"]
     assert {"engine_failure", "requeue"} <= {ev[0] for ev in rec.events}
-    out = tmp_path / "flight.json"
-    assert export_flight(rec, str(out)) == len(rec.dumps)
-    assert json.loads(out.read_text())["dumps"]
 
 
 def test_traced_torch_serve_on_cpu():
@@ -428,3 +425,147 @@ def test_sanitizer_quiet_for_stock_policies_and_engine_failure():
     assert cl.serve(_workload(6), max_wall_s=600)["completed"] == 6
     assert cl.sanitizer.engine_failures == 1
     assert cl.sanitizer.requeued == cl.stats.requeued >= 1
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock (serving.tracing.span)
+# ---------------------------------------------------------------------------
+
+SPAN_LAYERS = 2
+SPAN_CFGS = {
+    "dense": ModelConfig(name="span-dense", family="dense",
+                         num_layers=SPAN_LAYERS, d_model=64, num_heads=4,
+                         num_kv_heads=2, d_ff=128, vocab_size=VOCAB,
+                         remat=False, dtype="float32"),
+    "moe": ModelConfig(name="span-moe", family="moe", num_layers=SPAN_LAYERS,
+                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=32,
+                       vocab_size=VOCAB, remat=False, dtype="float32",
+                       moe=MoEConfig(num_experts=4, top_k=2,
+                                     d_ff_expert=32, capacity_factor=2.0)),
+}
+MOE_PHASES = ("repro_torch.moe.route", "repro_torch.moe.dispatch",
+              "repro_torch.moe.experts", "repro_torch.moe.combine")
+# each span's enclosing span (None: outermost)
+SPAN_PARENTS = {
+    "repro_torch.engine.prefill": {None},
+    "repro_torch.engine.prefill.payload": {"repro_torch.engine.prefill"},
+    "repro_torch.engine.prefill.readback": {"repro_torch.engine.prefill"},
+    "repro_torch.engine.insert": {None},
+    "repro_torch.engine.decode": {None},
+    "repro_torch.engine.decode.prepare": {"repro_torch.engine.decode"},
+    "repro_torch.engine.decode.readback": {"repro_torch.engine.decode"},
+    "repro_torch.model.mixer": {"repro_torch.engine.prefill",
+                                "repro_torch.engine.decode"},
+    "repro_torch.model.ffn": {"repro_torch.engine.prefill",
+                              "repro_torch.engine.decode"},
+    "repro_torch.model.moe": {"repro_torch.engine.prefill",
+                              "repro_torch.engine.decode"},
+    "repro_torch.model.logits": {"repro_torch.engine.prefill",
+                                 "repro_torch.engine.decode"},
+    **{name: {"repro_torch.model.moe"} for name in MOE_PHASES},
+}
+
+
+def _span_engines(kind):
+    cfg = SPAN_CFGS[kind]
+    params = init_torch_params(cfg, 0, device="cpu")
+    return [make_engine("torch", i, cfg, params, slots=4, capacity=48,
+                        device="cpu") for i in (0, 1)]
+
+
+def _profiled(fn):
+    """``fn()`` under a CPU ``torch.profiler``: the program's spans as
+    (name, start ns, end ns), and every name the profile holds."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()]
+    return ([e for e in events if e[0].startswith("repro_torch")],
+            {e[0] for e in events})
+
+
+def _parent(sp, spans):
+    """The innermost other span that holds ``sp``, or None."""
+    around = [o for o in spans if o is not sp and o[1] <= sp[1]
+              and sp[2] <= o[2] and (o[2] - o[1]) >= (sp[2] - sp[1])]
+    return min(around, key=lambda o: o[2] - o[1])[0] if around else None
+
+
+def _step_spans(kind, step):
+    """The spans one step of ``step`` records, by name."""
+    from collections import Counter
+    L = SPAN_LAYERS
+    ffn = "repro_torch.model.moe" if kind == "moe" else "repro_torch.model.ffn"
+    model = {"repro_torch.model.mixer": L, ffn: L,
+             "repro_torch.model.logits": 1}
+    if kind == "moe":
+        model.update({name: L for name in MOE_PHASES})
+    want = {"prefill": {"repro_torch.engine.prefill": 1,
+                        "repro_torch.engine.prefill.payload": 1,
+                        "repro_torch.engine.prefill.readback": 1, **model},
+            "insert": {"repro_torch.engine.insert": 1},
+            "decode": {"repro_torch.engine.decode": 1,
+                       "repro_torch.engine.decode.prepare": 1,
+                       "repro_torch.engine.decode.readback": 1, **model}}
+    return Counter(want[step])
+
+
+@pytest.mark.parametrize("kind", sorted(SPAN_CFGS))
+def test_engine_and_model_spans_under_the_profiler(kind):
+    """One prefill, insert and paged decode step of a dense and of a MoE
+    engine under a CPU profiler record exactly the spans of each site,
+    nested as the engine and the model nest them, named under
+    ``repro_torch.`` with no kernel-name fragment; the steps' results are
+    those of the same steps unprofiled."""
+    from collections import Counter
+    prompt = (np.arange(20, dtype=np.int32) * 7) % VOCAB
+    results = []
+    for profiled in (False, True):
+        pre, dec = _span_engines(kind)
+        box = {}
+
+        def prefill():
+            box["tok"], box["payload"] = pre.prefill(prompt)
+
+        def insert():
+            box["slot"] = dec.insert(types.SimpleNamespace(), box["payload"])
+
+        def decode():
+            box["next"] = dec.decode_step({box["slot"]: box["tok"]})
+        for step, fn in (("prefill", prefill), ("insert", insert),
+                         ("decode", decode)):
+            if not profiled:
+                fn()
+                continue
+            spans, _ = _profiled(fn)
+            assert Counter(n for n, _, _ in spans) == _step_spans(kind,
+                                                                  step), step
+            for sp in spans:
+                assert sp[0].startswith("repro_torch.")
+                assert "_kernel" not in sp[0]
+                assert _parent(sp, spans) in SPAN_PARENTS[sp[0]], sp
+        results.append((box["tok"], box["next"]))
+    assert results[0] == results[1]
+
+
+def test_no_range_without_a_profiler(monkeypatch):
+    """With no profiler running a decode step opens no range: the
+    profiler's range is never constructed, and every span is the one
+    shared no-op context."""
+    pre, dec = _span_engines("moe")
+    slot = dec.insert(types.SimpleNamespace(),
+                      pre.prefill(np.arange(12, dtype=np.int32))[1])
+    tracing.span("repro_torch.test")        # binds the profiler
+    made = []
+    real = tracing._range
+
+    def counted(name):
+        made.append(name)
+        return real(name)
+    monkeypatch.setattr(tracing, "_range", counted)
+    dec.decode_step({slot: 3})
+    assert made == []
+    assert tracing.span("repro_torch.test") is tracing.span("repro_torch.x")
+    spans, _ = _profiled(lambda: dec.decode_step({slot: 4}))
+    assert len(made) == len(spans) > 0      # the counter sees the ranges
