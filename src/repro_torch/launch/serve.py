@@ -332,7 +332,9 @@ def main(argv=None) -> Dict[str, Any]:
             mean_prefill_step_s=sum(e.prefill_s for e in built)
             / max(n_prefills, 1),
             mean_decode_step_s=sum(e.decode_s for e in built)
-            / max(n_decode, 1))
+            / max(n_decode, 1),
+            graph_captures=sum(e.graph_captures for e in built),
+            graph_replays=sum(e.graph_replays for e in built))
     if args.mode == "disagg":
         extra["prefill_pool"] = len(cluster.prefill_pool)
         extra["decode_pool"] = len(cluster.decode_pool)

@@ -89,6 +89,11 @@ or the RWKV block) and ``repro_torch.model.ffn`` or ``.moe``
 (``_ffn_aux``: its norm through its residual add), with
 ``repro_torch.model.logits`` around the head. With no profiler running a
 span is one check.
+
+``decode_step_paged`` takes an engine's CUDA graphs (``graphs=``,
+``serving/graphs.py``): on the card under ``impl="kernel"`` it replays
+the graph of its inputs' shapes, captured from its eager body
+(``_decode_step_paged_eager``) on the first step at those shapes.
 """
 from __future__ import annotations
 
@@ -1013,10 +1018,34 @@ def attn_decode_paged(p, x1, cfg: ModelConfig, pool_k, pool_v, tbl, pos,
 
 
 def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
-                      impl: str = "kernel"):
+                      impl: str = "kernel", *, graphs=None):
     """Batched decode step on the paged layout. tables: [L,B,nb] int32;
     pos, tokens: [B]. Returns (logits [B,Vp] fp32, pool, pos+1); the pool
-    is updated in place."""
+    is updated in place.
+
+    ``graphs``: an engine's ``serving.graphs.DecodeGraphs``. With it, on a
+    CUDA device under ``impl="kernel"``, the step is one replay of the
+    CUDA graph captured from this function's body for the inputs' shapes
+    (on the first step at those shapes); the logits and positions
+    returned are the graph's own tensors, overwritten by its next replay.
+    Anywhere else it is ignored."""
+    if graphs is not None and impl == "kernel" and tokens.is_cuda:
+        def body(tables, pos, tokens):
+            logits, _, pos1 = _decode_step_paged_eager(
+                params, cfg, pool, tables, pos, tokens, impl)
+            return logits, pos1
+        logits, pos1 = graphs.run(
+            body, (tables, pos, tokens),
+            pinned=(pool["k"], pool["v"], params["embed"]),
+            counters=(decode_attention_paged,))
+        return logits, pool, pos1
+    return _decode_step_paged_eager(params, cfg, pool, tables, pos, tokens,
+                                    impl)
+
+
+def _decode_step_paged_eager(params, cfg: ModelConfig, pool, tables, pos,
+                             tokens, impl: str):
+    """``decode_step_paged``'s body, every op launched as it is reached."""
     _check_attn(cfg, "the paged layout")
     x = embed_tokens(params, cfg, tokens[:, None])
     pk, pv = pool["k"], pool["v"]

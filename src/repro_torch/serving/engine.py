@@ -60,10 +60,24 @@ prefill`` (``.payload``, ``.readback``), ``.insert`` and ``.decode``
 (``.prepare``: the paged block growth, window and uploads; ``.readback``:
 the argmax, its copy to the host and the closing synchronise, where the
 host waits on the device), around the model's own spans.
+
+On a CUDA device a paged decode step is one replay of a CUDA graph of the
+whole step (``serving/graphs.py``), one graph per window ``nb``: at most
+log2 of the block table's width plus one per engine, each captured on the
+first step that meets its window. The step's tables, positions and tokens
+are staged in one pinned host buffer and go to the card in one copy, into
+a device buffer whose views are the graphs' inputs. The replay is the span
+``repro_torch.engine.decode.replay``; ``graph_captures`` and
+``graph_replays`` count both (``describe()`` reports them). A capture is a
+one-off cost of its window, kept off the step's measured time as the
+warm-up is: otherwise the straggler detector would drain an engine for
+the windows it meets first. Prefill, the dense layout and the CPU stay
+eager.
 """
 from __future__ import annotations
 
 import time
+from collections import deque
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -76,6 +90,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving.blocks import BlockAllocator, BlockPoolExhausted
 from repro_torch.serving.common import EngineFailure, PrefixCache, StepLog
+from repro_torch.serving.graphs import DecodeGraphs
 from repro_torch.serving.tracing import span
 
 
@@ -108,6 +123,16 @@ class PrefixBlocks:
     def __init__(self, ids: np.ndarray, length: int):
         self.ids = ids
         self.length = int(length)
+
+
+def window_blocks(max_pos: int, block_size: int, nb_max: int) -> int:
+    """The paged decode step's window in blocks: the least power of two
+    whose blocks hold position ``max_pos``, at most ``nb_max``. It is the
+    shape the step's tables take, and so the key of its CUDA graph."""
+    nb = 1
+    while nb * block_size <= max_pos:
+        nb *= 2
+    return min(nb, nb_max)
 
 
 def _grow_cache(cache, capacity: int):
@@ -152,6 +177,9 @@ class Engine:
         self.healthy = True
         self.clock = 0.0
         self.step_times = StepLog(step_history)
+        self._recent = {"prefill": deque(maxlen=50),
+                        "decode": deque(maxlen=50)}
+        self._last_kind = "decode"
         self.prefills = 0               # steps and their times by kind
         self.decode_steps = 0
         self.prefill_s = 0.0
@@ -183,6 +211,7 @@ class Engine:
                              "== 0")
         self._free = list(range(slots))
         self.slot_req: Dict[int, Any] = {}
+        self._graphs: Optional[DecodeGraphs] = None
         with_prefix = bool(chunk_size) and cfg.block == "attn"
         if self.paged:
             Lr = cfg.num_layers
@@ -195,6 +224,17 @@ class Engine:
             self._alloc = BlockAllocator(pool_blocks)
             self._tables = np.zeros((Lr, slots, self._nb_max), np.int32)
             self._pos = np.zeros((slots,), np.int32)
+            # a step's tokens (int64, as two int32 words each), positions
+            # and table window, staged on the host and copied at once
+            n = 3 * slots + Lr * slots * self._nb_max
+            on_card = self.device.type == "cuda"
+            self._stage_host = torch.zeros((n,), dtype=torch.int32,
+                                           pin_memory=on_card)
+            self._stage_dev = (torch.zeros((n,), dtype=torch.int32,
+                                           device=self.device)
+                               if on_card else self._stage_host)
+            if self.impl == "kernel":
+                self._graphs = DecodeGraphs(self.device)
             self.cache = None
             self.prefix_cache = (
                 PrefixCache(chunk_size, on_evict=self._release_entry)
@@ -218,17 +258,12 @@ class Engine:
         RWKV or a hybrid model's SSM, the whole state of every slot) that
         ``insert`` overwrites, and
         the dense positions are reset."""
-        toks = self._step_tokens({})
         if self.paged:
-            T.decode_step_paged(
-                self.params, self.cfg, self.pool,
-                torch.zeros((self.cfg.num_layers, self.slots, 1),
-                            dtype=torch.int32, device=self.device),
-                torch.as_tensor(self._pos, device=self.device), toks,
-                impl=self.impl)
+            T.decode_step_paged(self.params, self.cfg, self.pool,
+                                *self._stage({}, 1), impl=self.impl)
         else:
-            T.decode_step(self.params, self.cfg, self.cache, toks,
-                          impl=self.impl)
+            T.decode_step(self.params, self.cfg, self.cache,
+                          self._step_tokens({}), impl=self.impl)
             self.cache["pos"].zero_()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -254,15 +289,35 @@ class Engine:
                 "block_size": self.block_size if self.paged else 0,
                 "speed_factor": self.speed_factor,
                 "capacity_weight": self.capacity_weight,
-                "device": str(self.device), "impl": self.impl}
+                "device": str(self.device), "impl": self.impl,
+                "graph_captures": self.graph_captures,
+                "graph_replays": self.graph_replays}
 
-    def _tick(self, t0: float):
+    @property
+    def graph_captures(self) -> int:
+        """CUDA graphs captured of the paged decode step (one a window)."""
+        return self._graphs.captures if self._graphs is not None else 0
+
+    @property
+    def graph_replays(self) -> int:
+        """Paged decode steps run as a graph replay."""
+        return self._graphs.replays if self._graphs is not None else 0
+
+    def _capture_s(self) -> float:
+        return self._graphs.capture_s if self._graphs is not None else 0.0
+
+    def _tick(self, t0: float, kind: str, untimed: float = 0.0):
+        """Close a ``kind`` step ("prefill" or "decode") begun at ``t0``:
+        its time, less ``untimed`` seconds of one-off set-up inside it (a
+        CUDA graph's capture), goes on the clock and into ``step_times``."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        dt = ((time.perf_counter() - t0) * self.speed_factor
+        dt = ((time.perf_counter() - t0 - untimed) * self.speed_factor
               * self._slow_factor)
         self.clock += dt
         self.step_times.append(dt)
+        self._recent[kind].append(dt)
+        self._last_kind = kind
         return dt
 
     def _check(self):
@@ -336,7 +391,7 @@ class Engine:
                     self.params, self.cfg, {"tokens": tokens},
                     capacity=self.capacity, impl=self.impl)
             tok = self._first_token(logits)
-            self.prefill_s += self._tick(t0)
+            self.prefill_s += self._tick(t0, "prefill")
         self.prefills += 1
         return tok, payload
 
@@ -384,7 +439,7 @@ class Engine:
             cache=None if base is None else _grow_cache(base, self.capacity),
             start=start)
         tok = self._first_token(logits)
-        self.prefill_s += self._tick(t0)
+        self.prefill_s += self._tick(t0, "prefill")
         self.prefills += 1
         if self.prefix_cache is not None:
             # store only the chunk-aligned true prompt prefix (never pad
@@ -431,7 +486,7 @@ class Engine:
         # host numpy); a gather is a copy, so the pool blocks are free to go
         payload = PagedCache(T.gather_blocks(self.pool, tbl_t), Sp)
         tok = self._first_token(logits)
-        self.prefill_s += self._tick(t0)
+        self.prefill_s += self._tick(t0, "prefill")
         self.prefills += 1
         # the prefix entry keeps the chunk-aligned true prefix; pad blocks
         # go straight back to the pool. The request's refcounts move to
@@ -526,6 +581,28 @@ class Engine:
             self._pos[slot] = 0
         self._free.append(slot)
 
+    def _stage(self, tokens_by_slot: Dict[int, int], nb: int):
+        """The paged step's inputs for window ``nb``: (tables [L, slots, nb]
+        int32, pos [slots] int32, tokens [slots] int64), views of the
+        device staging buffer, filled from one host copy. The same window
+        always gives the same views, which are its graph's inputs. The
+        host buffer is written again only after the step's closing
+        synchronise, when the copy out of it has finished."""
+        S, Lr = self.slots, self.cfg.num_layers
+        n = 3 * S + Lr * S * nb
+        host = self._stage_host.numpy()
+        toks = host[:2 * S].view(np.int64)
+        toks[:] = 0
+        for s, t in tokens_by_slot.items():
+            toks[s] = t
+        host[2 * S:3 * S] = self._pos
+        host[3 * S:n].reshape(Lr, S, nb)[:] = self._tables[:, :, :nb]
+        dev = self._stage_dev
+        if dev is not self._stage_host:
+            dev[:n].copy_(self._stage_host[:n], non_blocking=True)
+        return (dev[3 * S:n].view(Lr, S, nb), dev[2 * S:3 * S],
+                dev[:2 * S].view(torch.int64))
+
     def _step_tokens(self, tokens_by_slot: Dict[int, int]) -> torch.Tensor:
         toks = np.zeros((self.slots,), np.int64)
         for s, t in tokens_by_slot.items():
@@ -546,7 +623,7 @@ class Engine:
             with span("repro_torch.engine.decode.readback"):
                 nxt = torch.argmax(logits[:, :self.cfg.vocab_size],
                                    dim=-1).tolist()
-                self.decode_s += self._tick(t0)
+                self.decode_s += self._tick(t0, "decode")
         self.decode_steps += 1
         return {s: int(nxt[s]) for s in tokens_by_slot}
 
@@ -565,30 +642,29 @@ class Engine:
             # width tracks what is live instead of the full per-slot
             # capacity
             mx = max(int(self._pos[s]) for s in tokens_by_slot)
-            nb = 1
-            while nb * Bs <= mx:
-                nb *= 2
-            nb = min(nb, self._nb_max)
+            nb = window_blocks(mx, Bs, self._nb_max)
             t0 = time.perf_counter()
-            dev = self.device
-            tables = torch.as_tensor(
-                np.ascontiguousarray(self._tables[:, :, :nb]), device=dev)
-            pos = torch.as_tensor(self._pos, device=dev)
-            toks = self._step_tokens(tokens_by_slot)
+            tables, pos, toks = self._stage(tokens_by_slot, nb)
+        captured = self._capture_s()
         logits, self.pool, _ = T.decode_step_paged(
             self.params, self.cfg, self.pool, tables, pos, toks,
-            impl=self.impl)
+            impl=self.impl, graphs=self._graphs)
         with span("repro_torch.engine.decode.readback"):
             nxt = torch.argmax(logits[:, :self.cfg.vocab_size],
                                dim=-1).tolist()
             for s in tokens_by_slot:
                 self._pos[s] += 1
-            self.decode_s += self._tick(t0)
+            self.decode_s += self._tick(t0, "decode",
+                                        self._capture_s() - captured)
         self.decode_steps += 1
         return {s: int(nxt[s]) for s in tokens_by_slot}
 
     @property
     def mean_step_s(self) -> float:
-        if not self.step_times:
-            return 0.0
-        return float(np.mean(self.step_times[-50:]))
+        """The mean of the last 50 steps of the kind the engine ran last:
+        what the straggler detector compares between the engines of one
+        pool. Steps of the other kind, which an engine moved between pools
+        brings along, are left out: a graphed decode step takes a fifth of
+        a prefill's time, and a mean over both drains a sound engine."""
+        recent = self._recent[self._last_kind]
+        return float(np.mean(recent)) if recent else 0.0
