@@ -3,9 +3,9 @@ its roofline in the traced window: the sum over its calls of the bound
 (``pbench.counts``, from each step's rows and attended positions: an
 active slot attends its prompt and its tokens so far, an idle slot one
 row) over the sum of the profiler's device time of the kernels that
-compute it today (the split pass and its merge). One call per layer per
-decode step; nothing is read unless the traced window holds exactly that
-many split launches."""
+compute it today (the split pass and its merge). One call per attention
+layer (the architecture's ``attn_layers``) per decode step; nothing is
+read unless the traced window holds exactly that many split launches."""
 from pbench import counts
 
 SPLIT = "paged_decode_kernel"
@@ -16,7 +16,7 @@ def read(run, variant):
     if run.td is None:
         return None
     steps = run.steps_in(run.decodes, run.t0, run.t1)
-    L = run.p["num_layers"]
+    L = run.arch.attn_layers(run.p)
     if not steps or len(run.td.kernels(SPLIT)) != L * len(steps):
         return None
     bound = 0.0

@@ -3,8 +3,9 @@
 bound (``pbench.counts``: the larger of FLOPs / 989 TFLOP/s and bytes /
 3.35 TB/s, from each call's prompt length and heads) over the sum of the
 profiler's device time of the kernels that compute it today. The count
-follows the operation: one call per layer per prefill step. Nothing is
-read unless the traced window holds exactly that many calls."""
+follows the operation: one call per attention layer (the architecture's
+``attn_layers``) per prefill step. Nothing is read unless the traced
+window holds exactly that many calls."""
 from pbench import counts
 
 KERNELS = ("flash_fwd_kernel",)
@@ -14,7 +15,7 @@ def read(run, variant):
     if run.td is None:
         return None
     steps = run.steps_in(run.prefills, run.t0, run.t1)
-    L = run.p["num_layers"]
+    L = run.arch.attn_layers(run.p)
     calls = run.td.kernels(*KERNELS)
     if not steps or len(calls) != L * len(steps):
         return None

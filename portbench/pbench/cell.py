@@ -5,7 +5,8 @@ port's ``Engine``s, built through their public constructors as the
 port's launcher builds them, with the pools, scheduler and router that
 the cell's file names (``FCFSScheduler``, ``RoundRobinRouter``, no rate
 matcher, for the cells of this benchmark). The weights are the
-benchmark's (``weights.draw``), the traffic its generator's, paced on
+benchmark's (``weights.draw``, laid out by the configuration's
+architecture, ``archs/<arch>.py``), the traffic its generator's, paced on
 the wall clock (``pacing``).
 
 Set-up is everything from the process's start to the window's opening:
@@ -32,7 +33,8 @@ from pbench.weights import draw, param_bytes
 
 
 class RunData:
-    """What the per-layer readers read: the port keys ``p``, the window
+    """What the per-layer readers read: the port keys ``p`` and the
+    architecture's module ``arch`` (``archs/<arch>.py``), the window
     [w0, w1] (wall seconds), the requests' stamps, the steps (see
     ``WallRecorder``), and for a traced run the trace (``td``) and its
     wall window [t0, t1] with the steps inside it."""
@@ -109,15 +111,18 @@ class Bench:
         self.t_start = t_start
         b = spec.load(root / "BENCHMARK.json")
         entry = spec.cell_entry(b, cell_name)
-        cfg_entry = spec.config_entry(b, entry["config"])
-        self.p = spec.read_json(root / cfg_entry["file"])["port"]
+        config = spec.read_json(root / spec.config_entry(
+            b, entry["config"])["file"])
+        self.p = config["port"]
+        self.arch = spec.config_arch(config, root)
         self.mix = traffic_mod.load(spec.traffic_file(entry["traffic"],
                                                       root))
         self.deploy = spec.read_json(spec.cell_file(cell_name, root))
         self.device = torch.device(device or "cuda")
         self.traced = traced
         cfg = model_config(self.p)
-        self.params = draw(self.p, seed, self.device)
+        self.params = draw(self.p, seed, self.device,
+                           self.arch.layout(self.p))
         _sync(self.device)
         log(f"# weights: {param_bytes(self.params) / 1e9:.3f} GB, "
             f"{time.perf_counter() - t_start:.2f} s since start")
@@ -204,8 +209,9 @@ class Bench:
                      f"{time.perf_counter() - t_end:.2f} s")
         _sync(self.device)
         stamps = list(work.stamps.values())
-        return RunData(p=self.p, w0=w0, w1=w1, stamps=stamps,
-                       prefills=rec.prefills, decodes=rec.decodes, td=td,
+        return RunData(p=self.p, arch=self.arch, w0=w0, w1=w1,
+                       stamps=stamps, prefills=rec.prefills,
+                       decodes=rec.decodes, td=td,
                        t0=t_prof, t1=t_end if td is not None else None,
                        setup_s=w0 - self.t_start,
                        handoff_bytes=rec.handoff_bytes,
@@ -236,7 +242,8 @@ class Bench:
         out: Dict[str, Any] = {}
         t_ref = time.perf_counter()
         if sample:
-            from pbench.reference import Reference, fp8_quant
+            from pbench.reference import fp8_quant
+            Reference = self.arch.Reference
             seqs, n_last, toks = check.sequences(sample, self.device)
             ref = Reference(self.p, self.params).logits(seqs, n_last)
             logits = check.served_logits(sample, served_logit, self.device)

@@ -1,16 +1,19 @@
 """Operations and bytes from shapes, and the table of peaks.
 
 Every count follows the operation, not the kernel that implements it, so
-that a later kernel is measured against the same work. Model FLOPs count
-the multiply-adds the model needs (2 per weight per token through the
-layers' projections, the top-k experts only for a mixture, the head at
-the positions whose logits are taken, and causal attention), never padded
-work such as a capacity buffer's empty slots or a decode batch's idle
-slots. Attention bytes count each input byte read once and each output
-byte written once (bf16 operands): Q, K, V and O of a prompt; Q, the
-attended K and V rows and O of a decode step. The block tables and
-lengths a decode call also reads are left out (under 0.1% of its bytes at
-these shapes), which can only lower a bound.
+that a later kernel is measured against the same work. Model FLOPs, which
+each architecture's module counts (``archs/<arch>.py``: ``prefill_flops``,
+``decode_flops``), count the multiply-adds the model needs (2 per weight
+per token through the layers' projections, the top-k experts only for a
+mixture, the head at the positions whose logits are taken, and causal
+attention from the counts here), never padded work such as a capacity
+buffer's empty slots or a decode batch's idle slots. What all
+architectures share is here: one layer's attention by its heads (H, Hkv,
+dh), the peaks and ``bound_s``. Attention bytes count each input byte
+read once and each output byte written once (bf16 operands): Q, K, V and
+O of a prompt; Q, the attended K and V rows and O of a decode step. The
+block tables and lengths a decode call also reads are left out (under
+0.1% of its bytes at these shapes), which can only lower a bound.
 """
 from __future__ import annotations
 
@@ -26,20 +29,6 @@ def dims(p: Dict[str, Any]) -> Dict[str, int]:
     D, H = p["d_model"], p["num_heads"]
     return {"L": p["num_layers"], "D": D, "H": H, "Hkv": p["num_kv_heads"],
             "dh": p.get("head_dim") or D // H, "V": p["vocab_size"]}
-
-
-def layer_weights_active(p: Dict[str, Any]) -> int:
-    """Projection weights one token passes through in one layer."""
-    d = dims(p)
-    D, H, Hkv, dh = d["D"], d["H"], d["Hkv"], d["dh"]
-    attn = D * H * dh + 2 * D * Hkv * dh + H * dh * D
-    moe = p.get("moe")
-    if moe:
-        ffn = D * moe["num_experts"] + moe["top_k"] * 3 * D * moe[
-            "d_ff_expert"]
-    else:
-        ffn = 3 * D * p["d_ff"]
-    return attn + ffn
 
 
 def attn_prefill_flops(p, S: int) -> float:
@@ -70,20 +59,3 @@ def bound_s(flops: float, nbytes: float) -> float:
     """The least time the card could take: the larger of operations over
     the bf16 peak and bytes over the HBM peak."""
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S)
-
-
-def prefill_flops(p, S: int) -> float:
-    """Model FLOPs of one prompt's prefill: the layers over S tokens, the
-    head at the last position, causal attention."""
-    d = dims(p)
-    return (2.0 * S * d["L"] * layer_weights_active(p)
-            + 2.0 * d["D"] * d["V"] + d["L"] * attn_prefill_flops(p, S))
-
-
-def decode_flops(p, active: int, ctx_sum: int) -> float:
-    """Model FLOPs of one decode step over ``active`` requests whose
-    attended positions sum to ``ctx_sum``."""
-    d = dims(p)
-    return (2.0 * active * (d["L"] * layer_weights_active(p)
-                            + d["D"] * d["V"])
-            + d["L"] * attn_decode_flops(p, ctx_sum))

@@ -5,15 +5,19 @@ A cell ``c`` of configuration ``m`` under traffic ``t`` is served from
 three data files found by name, and read by the per-layer metrics' files:
 
 - ``configs/<m>.json``: the model as it is run (``port``: the keys of the
-  port's ``ModelConfig``), beside the published configuration it states;
+  port's ``ModelConfig``), beside the published configuration it states,
+  and the architecture it has (``arch``; ``decoder`` where absent);
+- ``archs/<arch>.py``: what the benchmark knows of an architecture: the
+  weights' layout, the plain reference and the model FLOPs (see
+  ``archs/decoder.py``);
 - ``traffic/<t>.json``: the mix (arrivals, lengths, ramp);
 - ``cells/<c>.json``: the deployment that serves it (pools, slots, block
   size) and the limits of the comparison that decides ``correct``;
 - ``metrics/<name>.py`` or, for a metric ``<family>.<variant>``,
   ``metrics/<family>.py``: a reader ``read(run, variant)``.
 
-A later cell, configuration, mix or metric is a set of new files and new
-entries here; no existing file changes.
+A later cell, configuration, architecture, mix or metric is a set of new
+files and new entries here; no existing file changes.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any, Dict, List
 
 HERE = Path(__file__).resolve().parent.parent       # portbench/
 ROOT = HERE.parent
+DEFAULT_ARCH = "decoder"
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -96,6 +101,13 @@ def validate(b: Dict[str, Any], root: Path = ROOT) -> List[str]:
         _line(c["why"], f"config {c['name']} why", e)
         if not any(c["file"].startswith(p.rstrip("/") + "/") for p in paths):
             e.append(f"config {c['name']}: file outside paths")
+        cfg_path = root / c["file"]
+        if cfg_path.exists():
+            try:
+                arch_file(read_json(cfg_path).get("arch", DEFAULT_ARCH),
+                          root)
+            except FileNotFoundError as err:
+                e.append(f"config {c['name']}: {err}")
         if len(c["reduced"]) > 16:
             e.append(f"config {c['name']}: more than 16 reduced keys")
         for k in c["reduced"]:
@@ -253,6 +265,32 @@ def reader(name: str, root: Path = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read, variant
+
+
+def arch_file(name: str, root: Path = ROOT) -> Path:
+    """``archs/<name>.py``: the module of architecture ``name``."""
+    f = root / "portbench" / "archs" / f"{name}.py"
+    if not NAME.match(str(name)) or not f.is_file():
+        raise FileNotFoundError(f"arch {name!r}: no module {f}")
+    return f
+
+
+def arch(name: str, root: Path = ROOT):
+    """The module of architecture ``name``: ``layout(p)``,
+    ``Reference(p, params, quant=None)``, ``prefill_flops(p, S)``,
+    ``decode_flops(p, active, ctx_sum)`` and ``attn_layers(p)``."""
+    path = arch_file(name, root)
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_arch_{name.replace('.', '_').replace('-', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def config_arch(config: Dict[str, Any], root: Path = ROOT):
+    """The module of the architecture that a configuration's file names
+    in its top-level ``arch`` (``decoder`` where it names none)."""
+    return arch(config.get("arch", DEFAULT_ARCH), root)
 
 
 def read_json(path: Path) -> Dict[str, Any]:

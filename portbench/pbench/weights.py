@@ -1,16 +1,16 @@
 """The served weights, drawn on the device from the seed.
 
-The tree has the port's parameter layout (``embed`` [Vp, D], ``blocks``
-with ``wq`` [D, H, dh], ``wk``/``wv`` [D, Hkv, dh], ``wo`` [H, dh, D], the
-dense SwiGLU ``wi_gate``/``wi_up`` [D, F] and ``wo_ffn`` [F, D] or the MoE
-FFN's ``moe`` = ``router`` [D, E] fp32, ``wg``/``wu`` [E, D, F], ``wd``
-[E, F, D]; norms; ``lm_head`` [D, Vp] unless the embedding is tied) and the
-scales of the port's own initialiser (std 1/sqrt(D) for the input
-projections, 1/sqrt(D L) for the output ones, 0.02 for the embedding and
-the router, norms at 1). The numbers are the benchmark's: all bf16 leaves
-are views of one buffer filled by ``normal_`` from a ``torch.Generator``
-on the device in a few large calls, then scaled group by group. The same
-tensors go to the program and to the reference.
+An architecture's module (``archs/<arch>.py``) lays the tree out:
+``layout(p)`` gives (path, shape, init) of every leaf in draw order. Five
+inits are shared, at the scales of the port's own initialiser: ``in``
+(std 1/sqrt(D)), ``out`` (1/sqrt(D L)), ``embed`` and ``router`` (0.02,
+the router in fp32), ``ones``. All bf16 leaves of the shared inits are
+views of one buffer per init filled by ``normal_`` from a
+``torch.Generator`` on the device in a few large calls, then scaled. An
+init of the module's own is a number (a bf16 constant) or a function
+``init(shape, gen)`` returning the leaf on the generator's device; those
+are made after the shared ones, so that they change no shared leaf. The
+same tensors go to the program and to the reference.
 """
 from __future__ import annotations
 
@@ -21,39 +21,7 @@ import torch
 
 MASK64 = (1 << 64) - 1
 _CHUNK = 1 << 30                # elements per normal_ call
-
-
-def layout(p: Dict[str, Any]) -> List[Tuple[Tuple, Tuple[int, ...], str]]:
-    """(path, shape, init) of every leaf for the port keys ``p``; init is
-    ``in``, ``out``, ``embed``, ``router`` or ``ones``."""
-    D, L = p["d_model"], p["num_layers"]
-    H, Hkv = p["num_heads"], p["num_kv_heads"]
-    dh = p.get("head_dim") or D // H
-    V = p["vocab_size"] + p.get("vocab_pad", 0)
-    out = [(("embed",), (V, D), "embed"), (("final_norm",), (D,), "ones")]
-    if not p.get("tie_embeddings", False):
-        out.append((("lm_head",), (D, V), "in"))
-    for i in range(L):
-        b = ("blocks", i)
-        out += [(b + ("attn_norm",), (D,), "ones"),
-                (b + ("wq",), (D, H, dh), "in"),
-                (b + ("wk",), (D, Hkv, dh), "in"),
-                (b + ("wv",), (D, Hkv, dh), "in"),
-                (b + ("wo",), (H, dh, D), "out"),
-                (b + ("ffn_norm",), (D,), "ones")]
-        moe = p.get("moe")
-        if moe:
-            E, F = moe["num_experts"], moe["d_ff_expert"]
-            out += [(b + ("moe", "router"), (D, E), "router"),
-                    (b + ("moe", "wg"), (E, D, F), "in"),
-                    (b + ("moe", "wu"), (E, D, F), "in"),
-                    (b + ("moe", "wd"), (E, F, D), "out")]
-        else:
-            F = p["d_ff"]
-            out += [(b + ("wi_gate",), (D, F), "in"),
-                    (b + ("wi_up",), (D, F), "in"),
-                    (b + ("wo_ffn",), (F, D), "out")]
-    return out
+KINDS = ("in", "out", "embed", "router", "ones")
 
 
 def _put(tree: Dict[str, Any], path: Tuple, value) -> None:
@@ -73,21 +41,25 @@ def _fill_normal(buf: torch.Tensor, gen: torch.Generator) -> None:
         buf[a:a + _CHUNK].normal_(generator=gen)
 
 
-def draw(p: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The parameter tree for the port keys ``p`` on ``device``, bf16 but
-    for the fp32 router, from ``seed``."""
+def draw(p: Dict[str, Any], seed: int, device,
+         leaves: List[Tuple[Tuple, Tuple[int, ...], Any]]) -> Dict[str, Any]:
+    """The parameter tree for the port keys ``p`` on ``device`` from
+    ``seed``, laid out as ``leaves`` (an architecture's ``layout(p)``):
+    bf16 but for the fp32 router and what a leaf of its own init makes."""
     if p.get("dtype", "bfloat16") != "bfloat16":
         raise ValueError("the benchmark serves bf16 weights")
+    for path, _, init in leaves:
+        if isinstance(init, str) and init not in KINDS:
+            raise ValueError(f"{path}: unknown init {init!r}")
     device = torch.device(device)
     D, L = p["d_model"], p["num_layers"]
     std = {"in": 1.0 / math.sqrt(D), "out": 1.0 / math.sqrt(D * L),
            "embed": 0.02, "router": 0.02}
-    leaves = layout(p)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) & MASK64)
     tree: Dict[str, Any] = {}
     groups = {}
-    for kind in ("in", "out", "embed", "router", "ones"):
+    for kind in KINDS:
         groups[kind] = [lf for lf in leaves if lf[2] == kind]
     dtypes = {"router": torch.float32}
     for kind, members in groups.items():
@@ -106,6 +78,14 @@ def draw(p: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
             k = math.prod(shape)
             _put(tree, path, buf[off:off + k].view(shape))
             off += k
+    for path, shape, init in leaves:
+        if isinstance(init, str):
+            continue
+        if callable(init):
+            _put(tree, path, init(tuple(shape), gen).to(device))
+        else:
+            _put(tree, path, torch.full(shape, float(init),
+                                        dtype=torch.bfloat16, device=device))
     return tree
 
 

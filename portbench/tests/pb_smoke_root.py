@@ -2,9 +2,11 @@
 ``BENCHMARK.json`` with two cells (a dense model under an open loop, a
 mixture of experts under a closed loop, both at the port's smoke widths),
 their configuration, traffic and cell files, and the benchmark's metric
-readers beside them, all written into a temporary folder."""
+readers and architectures' modules beside them, all written into a
+temporary folder."""
 from __future__ import annotations
 
+import hashlib
 import json
 import shutil
 from pathlib import Path
@@ -46,6 +48,15 @@ def cell_limits(name: str):
     return MOE_LIMITS if name == "moe.closed" else LIMITS
 
 
+def folder_digest(folder: Path) -> str:
+    """Every file's name and bytes under ``folder``, caches left out."""
+    h = hashlib.sha256()
+    for f in sorted(folder.rglob("*")):
+        if f.is_file() and "__pycache__" not in f.parts:
+            h.update(str(f.relative_to(folder)).encode() + f.read_bytes())
+    return h.hexdigest()
+
+
 def write(path: Path, obj) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(obj, indent=1))
@@ -53,7 +64,9 @@ def write(path: Path, obj) -> None:
 
 def make(root: Path) -> Path:
     pb = root / "portbench"
-    shutil.copytree(PORTBENCH / "metrics", pb / "metrics")
+    for d in ("metrics", "archs"):
+        shutil.copytree(PORTBENCH / d, pb / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for p in (DENSE, MOE):
         write(pb / "configs" / f"{p['name']}.json", {"port": p})
     write(pb / "traffic" / "open.json",

@@ -1,5 +1,6 @@
 """Import hygiene: the harness loads neither JAX nor the JAX package, and
-the reference loads nothing of the program. Each import runs in a fresh
+the reference, with every architecture's module under ``archs/``, loads
+nothing of the program. Each import runs in a fresh
 interpreter; top-level module names are compared whole."""
 import json
 import subprocess
@@ -39,8 +40,13 @@ def test_harness_loads_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
+    archs = sorted(f.stem for f in (PORTBENCH / "archs").glob("*.py"))
+    assert "decoder" in archs
     mods = loaded("import pbench.reference, pbench.check, pbench.weights,"
-                  " pbench.counts\n")
+                  " pbench.counts\n"
+                  "from pbench import spec\n"
+                  f"for a in {archs!r}:\n"
+                  "    spec.arch(a).Reference\n")
     assert "torch" in mods
     assert not mods & {"repro_torch", "repro", "jax", "jaxlib", "flax"}
 

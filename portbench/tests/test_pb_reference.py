@@ -1,14 +1,21 @@
-"""The plain fp32 reference against the port on its smoke
-configurations on the CPU, and the benchmark's weights in the port's
-layout."""
+"""The decoder's plain fp32 reference (``archs/decoder.py``) against the
+port on its smoke configurations on the CPU, and the benchmark's weights
+in the port's layout."""
 import pytest
 import torch
 
 import pb_smoke_root
-from pbench import weights
+from pbench import spec, weights
 from pbench.cell import model_config
-from pbench.reference import Reference, fp8_quant
+from pbench.reference import fp8_quant
 from repro_torch.models import transformer as T
+
+DECODER = spec.arch("decoder")
+Reference = DECODER.Reference
+
+
+def draw(p, seed):
+    return weights.draw(p, seed, "cpu", DECODER.layout(p))
 
 
 def as_fp32(tree):
@@ -30,10 +37,10 @@ def shapes(tree):
 @pytest.mark.parametrize("p", [pb_smoke_root.DENSE, pb_smoke_root.MOE],
                          ids=["dense", "moe"])
 def test_weights_in_the_port_layout(p):
-    params = weights.draw(p, 11, "cpu")
+    params = draw(p, 11)
     assert shapes(params) == shapes(T.abstract_params(model_config(p)))
-    again = weights.draw(p, 11, "cpu")
-    other = weights.draw(p, 12, "cpu")
+    again = draw(p, 11)
+    other = draw(p, 12)
     assert torch.equal(params["embed"], again["embed"])
     assert not torch.equal(params["embed"], other["embed"])
     wq = params["blocks"][1]["wq"].float()
@@ -43,7 +50,7 @@ def test_weights_in_the_port_layout(p):
 @pytest.mark.parametrize("p", [pb_smoke_root.DENSE, pb_smoke_root.MOE],
                          ids=["dense", "moe"])
 def test_reference_matches_the_port_in_fp32(p):
-    params = weights.draw(p, 5, "cpu")
+    params = draw(p, 5)
     cfg = model_config(dict(p, dtype="float32"))
     port_params = as_fp32(params)
     seq = torch.randint(0, p["vocab_size"], (21,),
@@ -61,7 +68,7 @@ def test_reference_matches_the_port_in_fp32(p):
 
 def test_control_is_a_lower_precision():
     p = pb_smoke_root.DENSE
-    params = weights.draw(p, 5, "cpu")
+    params = draw(p, 5)
     seq = torch.randint(0, p["vocab_size"], (30,),
                         generator=torch.Generator().manual_seed(1))
     ref = Reference(p, params).logits([seq], [10])[0]

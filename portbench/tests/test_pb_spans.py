@@ -1,7 +1,8 @@
 """The readers of the program's own spans (``engine.decode_host_share``,
 ``engine.decode_launches``, ``model.moe_share``) on hand-built traces, and
 on the card the spans themselves: recorded on the profiler's host
-timeline, never copied onto the device's."""
+timeline, never copied onto the device's, around decode steps that replay
+CUDA graphs."""
 import types
 
 import pytest
@@ -108,12 +109,14 @@ def _card_engines(moe: bool):
 @pytest.mark.gpu
 @pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
 def test_spans_stay_off_the_device_timeline(moe):
-    """On the card: a prefill, an insert and decode steps under the
+    """On the card, in the benchmark's order (the profiler started once
+    before any capture): a prefill, an insert and decode steps under the
     benchmark's profiler, read by ``trace.read``. The program's spans are
-    among the host's ops and none is on the device's timeline; the readers
-    read them; every device activity of the decode steps is one launch
-    call inside a decode span (run it on the card: ``python -m pytest -m
-    gpu -s portbench/tests/test_pb_spans.py``)."""
+    among the host's ops and none is on the device's timeline; each decode
+    step is one replay of a CUDA graph: one ``cudaGraphLaunch`` a step, the
+    model's spans only in the prefill and the step that captures, the paged
+    kernel once a layer a step; the readers read them (run it on the card:
+    ``python -m pytest -m gpu -s portbench/tests/test_pb_spans.py``)."""
     import time
     from collections import Counter
 
@@ -122,6 +125,19 @@ def test_spans_stay_off_the_device_timeline(moe):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card")
     pre, dec = _card_engines(moe)
+    L = 2
+    with trace.profiler():              # the profiler's own first start
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+
+    def counted(td):
+        names = Counter(n for n, _, _ in td.host_ops
+                        if n.startswith("repro_torch."))
+        graphs = sum(1 for n, _, _ in td.host_ops
+                     if n.startswith(("cudaGraphLaunch", "cuGraphLaunch")))
+        assert not [e for e in td.device if e[0].startswith("repro_torch")]
+        return names, graphs
+
     prompt = np.arange(40, dtype=np.int32)
     t = time.perf_counter()
     with trace.profiler() as prof:
@@ -131,28 +147,31 @@ def test_spans_stay_off_the_device_timeline(moe):
             tok = dec.decode_step({slot: tok})[slot]
         torch.cuda.synchronize()
     td = trace.read(prof, time.perf_counter() - t)
-    names = Counter(n for n, _, _ in td.host_ops
-                    if n.startswith("repro_torch."))
-    assert not [e for e in td.device if e[0].startswith("repro_torch")]
-    assert names[DECODE] == 3 and names["repro_torch.engine.prefill"] == 1
+    names, graphs = counted(td)
+    assert names[DECODE] == 3 and graphs == 3
+    assert names["repro_torch.engine.prefill"] == 1
     assert names["repro_torch.engine.insert"] == 1
-    assert names["repro_torch.model.mixer"] == 2 * 4
-    assert names[MOE if moe else "repro_torch.model.ffn"] == 2 * 4
+    assert dec.graph_captures == 1 and dec.graph_replays == 3
+    # the prefill's layers and the capturing step's
+    assert names["repro_torch.model.mixer"] == 2 * L
+    assert names[MOE if moe else "repro_torch.model.ffn"] == 2 * L
+    assert len(td.kernels("paged_decode_kernel")) == 3 * L
     share = read("engine.decode_host_share.itl", td)
-    launches = read("engine.decode_launches.itl", td)
-    assert 0.0 < share <= 100.0 and launches > 0
-    moe_share = read("model.moe_share.itl", td)
-    assert (0.0 < moe_share < 100.0) if moe else moe_share is None
+    assert 0.0 < share <= 100.0
 
-    # decode steps alone: each device activity is one launch call
+    # replayed steps alone: no model span, one graph launch a step
     with trace.profiler() as prof:
         for _ in range(3):
             tok = dec.decode_step({slot: tok})[slot]
         torch.cuda.synchronize()
     td = trace.read(prof, 1.0)
-    api = Counter(n for n, _, _ in td.host_ops if n.startswith("cu"))
+    names, graphs = counted(td)
     launches = read("engine.decode_launches.itl", td)
     print("span-card " + str({"moe": moe, "share": share,
-                              "launches": launches, "moe_share": moe_share,
-                              "device": len(td.device), "api": dict(api)}))
-    assert launches * 3 == len(td.device)
+                              "launches": launches, "graphs": graphs,
+                              "device": len(td.device)}))
+    assert names[DECODE] == 3 and graphs == 3
+    assert not [n for n in names if n.startswith("repro_torch.model.")]
+    assert len(td.kernels("paged_decode_kernel")) == 3 * L
+    assert 0 < launches <= 16
+    assert read("engine.decode_graph_share.itl", td) == 100.0

@@ -1,7 +1,6 @@
 """``BENCHMARK.json``'s validation, and a cell, a configuration, a mix
 and a per-layer metric added as new files only, found by name."""
 import copy
-import hashlib
 import json
 import time
 from pathlib import Path
@@ -12,14 +11,6 @@ import pb_smoke_root
 from pbench import cell, spec
 
 PORTBENCH = Path(__file__).resolve().parent.parent
-
-
-def digest(folder: Path) -> str:
-    h = hashlib.sha256()
-    for f in sorted(folder.rglob("*")):
-        if f.is_file() and "__pycache__" not in f.parts:
-            h.update(str(f.relative_to(folder)).encode() + f.read_bytes())
-    return h.hexdigest()
 
 
 def test_the_benchmark_is_valid():
@@ -53,7 +44,7 @@ def test_validation_refuses(edit, word):
 
 
 def test_new_cell_config_mix_and_metric_as_files(tmp_path):
-    before = digest(PORTBENCH)
+    before = pb_smoke_root.folder_digest(PORTBENCH)
     root = pb_smoke_root.make(tmp_path)
     pb = root / "portbench"
     # a configuration, a mix, a cell and a per-layer metric: new files
@@ -96,4 +87,5 @@ def test_new_cell_config_mix_and_metric_as_files(tmp_path):
     names = [m["name"] for m in spec.metrics_of(b, "wide.burst",
                                                  "per_layer")]
     assert names == ["model.mfu.tput", "engine.handoff_mb.tput"]
-    assert digest(PORTBENCH) == before          # nothing existing edited
+    # nothing existing edited
+    assert pb_smoke_root.folder_digest(PORTBENCH) == before
