@@ -4,16 +4,58 @@ Same fields, defaults and properties as the reference, so a config built
 here describes exactly the model the JAX package builds. Where the
 reference has ``jdtype`` (a jnp dtype) the mirror has ``tdtype`` (a torch
 dtype).
+
+The port adds settings the reference has no model for (Jamba's
+interleaved layers, a Mamba-1 mixer, a router's unrenormalised gates and
+the experts one card holds of an expert-parallel deployment). They are
+init-only arguments (``dataclasses.InitVar``), kept as attributes but not
+as dataclass fields, so that ``dataclasses.asdict`` of every configuration
+is the reference's; equality, hashing and ``replace`` take them in, and
+each defaults to what every other configuration means.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 
-@dataclasses.dataclass(frozen=True)
+def _port_dataclass(*names: str):
+    """A frozen dataclass whose init-only settings ``names``
+    (``PORT_ONLY``) are kept as attributes, with equality, a hash and
+    ``replace`` that take them in."""
+    def wrap(cls):
+        def __post_init__(self, *values):
+            for name, v in zip(names, values):
+                object.__setattr__(self, name, v)
+
+        def key(self):
+            return (tuple(getattr(self, f.name)
+                          for f in dataclasses.fields(self))
+                    + tuple(getattr(self, n) for n in names))
+
+        def __eq__(self, other):
+            if other.__class__ is not self.__class__:
+                return NotImplemented
+            return key(self) == key(other)
+
+        def replace(self, **kw):
+            for n in names:
+                kw.setdefault(n, getattr(self, n))
+            return dataclasses.replace(self, **kw)
+
+        cls.__post_init__ = __post_init__
+        cls = dataclasses.dataclass(frozen=True)(cls)
+        cls.__eq__ = __eq__
+        cls.__hash__ = lambda self: hash(key(self))
+        cls.replace = replace
+        cls.PORT_ONLY = names
+        return cls
+    return wrap
+
+
+@_port_dataclass("router_experts", "first_expert", "renormalize")
 class MoEConfig:
     num_experts: int
     top_k: int
@@ -24,9 +66,23 @@ class MoEConfig:
     # routing skew. Effective capacity = min(T, max(cf*T*k/E, min_capacity)).
     min_capacity: int = 8
     router_jitter: float = 0.0
+    # --- port-only (init-only; see the module's docstring) ---
+    # the router's width: tokens route over this many experts, of which
+    # this card holds num_experts, from first_expert on (one card of an
+    # expert-parallel deployment; 0: the router's width is num_experts)
+    router_experts: dataclasses.InitVar[int] = 0
+    first_expert: dataclasses.InitVar[int] = 0
+    renormalize: dataclasses.InitVar[bool] = True   # top-k gates sum to 1
+
+    @property
+    def routed(self) -> int:
+        """The experts a token is routed over (the router's outputs)."""
+        return self.router_experts or self.num_experts
 
 
-@dataclasses.dataclass(frozen=True)
+@_port_dataclass("attn_layer_period", "attn_layer_offset",
+                 "expert_layer_period", "expert_layer_offset", "rope",
+                 "ssm_dt_rank", "ssm_conv_bias")
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid
@@ -43,7 +99,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     sliding_window: int = 0        # 0 = full causal; >0 = SWA (hymba)
     # --- block composition ---
-    block: str = "attn"            # attn | rwkv | hybrid
+    block: str = "attn"            # attn | rwkv | hybrid | jamba
     moe: Optional[MoEConfig] = None
     # --- SSM (hybrid / mamba branch) ---
     ssm_state: int = 16
@@ -71,6 +127,43 @@ class ModelConfig:
     remat: bool = True
     grad_accum: int = 1             # microbatch accumulation steps
     tie_embeddings: bool = False
+    # --- port-only (init-only; see the module's docstring) ---
+    # the jamba block: attention in the layers i with i % attn_layer_period
+    # == attn_layer_offset, a Mamba-1 mixer (models/ssm.py) in the others;
+    # with ``moe``, the MoE FFN in the layers i % expert_layer_period ==
+    # expert_layer_offset, a dense SwiGLU in the others (every layer at
+    # the defaults)
+    attn_layer_period: dataclasses.InitVar[int] = 1
+    attn_layer_offset: dataclasses.InitVar[int] = 0
+    expert_layer_period: dataclasses.InitVar[int] = 1
+    expert_layer_offset: dataclasses.InitVar[int] = 0
+    rope: dataclasses.InitVar[bool] = True     # False: no position encoding
+    ssm_dt_rank: dataclasses.InitVar[int] = 0  # Mamba-1's dt projection rank
+    ssm_conv_bias: dataclasses.InitVar[bool] = False
+
+    def attends(self, i: int) -> bool:
+        """Layer i has attention: every layer of the attn and hybrid
+        blocks, the pattern's layers of a jamba model, none of RWKV's."""
+        if self.block == "rwkv":
+            return False
+        return i % self.attn_layer_period == self.attn_layer_offset
+
+    def has_experts(self, i: int) -> bool:
+        """Layer i's FFN is the MoE FFN."""
+        return (self.moe is not None
+                and i % self.expert_layer_period == self.expert_layer_offset)
+
+    @property
+    def attn_layer_ids(self) -> Tuple[int, ...]:
+        return tuple(i for i in range(self.num_layers) if self.attends(i))
+
+    @property
+    def mamba_layer_ids(self) -> Tuple[int, ...]:
+        """A jamba model's Mamba-1 layers (none in any other block)."""
+        if self.block != "jamba":
+            return ()
+        return tuple(i for i in range(self.num_layers)
+                     if not self.attends(i))
 
     @property
     def dh(self) -> int:
@@ -107,7 +200,7 @@ class ModelConfig:
     @property
     def can_group_decode(self) -> bool:
         g = self.q_group
-        return (self.block in ("attn", "hybrid") and g > 0
+        return (self.block in ("attn", "hybrid", "jamba") and g > 0
                 and self.padded_heads % g == 0
                 and self.padded_heads // g == self.padded_kv_heads)
 
@@ -126,6 +219,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Total parameter count (analytic, matches init)."""
+        if self.block == "jamba":
+            return self._jamba_param_count()
         D, dh, L = self.d_model, self.dh, self.num_layers
         n = self.vocab_size * D                              # embed
         if not self.tie_embeddings:
@@ -164,26 +259,47 @@ class ModelConfig:
             per_layer += D                                   # ffn norm
         return n + L * per_layer
 
+    def _jamba_param_count(self) -> int:
+        """A jamba model's, layer by layer: attention or the Mamba-1
+        mixer, and the MoE FFN (the experts held) or the dense SwiGLU."""
+        D, dh = self.d_model, self.dh
+        di, ds, R = self.ssm_expand * D, self.ssm_state, self.ssm_dt_rank
+        n = self.vocab_size * D * (1 if self.tie_embeddings else 2) + D
+        attn = D * (self.num_heads + 2 * self.num_kv_heads) * dh \
+            + self.num_heads * dh * D
+        mamba = (D * 2 * di + di * self.ssm_conv + di * (R + 2 * ds)
+                 + R * di + di * ds + di * D + R + 2 * ds
+                 + di * (3 if self.ssm_conv_bias else 2))
+        for i in range(self.num_layers):
+            n += 2 * D + (attn if self.attends(i) else mamba)
+            if self.has_experts(i):
+                m = self.moe
+                n += D * m.routed + (m.num_experts + m.num_shared_experts) \
+                    * 3 * D * m.d_ff_expert
+            else:
+                n += 3 * D * self.d_ff
+        return n
+
     def active_param_count(self) -> int:
         """Active params per token (MoE: only routed experts)."""
         if self.moe is None:
             return self.param_count()
         m = self.moe
         total = self.param_count()
-        all_expert = self.num_layers * m.num_experts * 3 * self.d_model * m.d_ff_expert
-        active_expert = self.num_layers * (m.top_k + m.num_shared_experts) * (
+        L = sum(self.has_experts(i) for i in range(self.num_layers))
+        all_expert = L * m.num_experts * 3 * self.d_model * m.d_ff_expert
+        active_expert = L * (m.top_k + m.num_shared_experts) * (
             3 * self.d_model * m.d_ff_expert)
         return total - all_expert + active_expert
 
     def kv_bytes_per_token(self, bytes_element: int = 2) -> int:
-        """KV-cache bytes per token (for Eq 1/2 transfer analysis)."""
+        """KV-cache bytes per token (for Eq 1/2 transfer analysis): the
+        attention layers'."""
         if self.block == "rwkv":
             return 0  # O(1) state, not per-token
         per_layer = 2 * self.num_kv_heads * self.dh * bytes_element
-        return self.num_layers * per_layer
+        return len(self.attn_layer_ids) * per_layer
 
-    def replace(self, **kw) -> "ModelConfig":
-        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

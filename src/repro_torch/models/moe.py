@@ -43,6 +43,13 @@ token table is written with ``index_put_``; its duplicate indices all land
 in the drop column C, cut off before use, and all write the same
 sentinel.
 
+One card of an expert-parallel deployment with no mesh: a ``MoEConfig``
+with ``router_experts`` routes every token over that many experts and
+runs the ``num_experts`` it holds from ``first_expert`` on; what the
+others would add is left out (the program stands in for no other card).
+``renormalize=False`` keeps the top-k gates as the softmax over all the
+router's experts gave them (Jamba's), where the reference's sum to 1.
+
 Under a ``torch.profiler`` session ``_local_moe``'s four phases are spans
 on the profiler's clock (``serving.tracing.span``): ``repro_torch.moe.
 route`` (the router), ``.dispatch`` (slots, the slot table and the
@@ -72,7 +79,7 @@ f32 = torch.float32
 
 def expert_capacity(num_tokens: int, cfg: MoEConfig) -> int:
     c = math.ceil(cfg.capacity_factor * num_tokens * cfg.top_k
-                  / cfg.num_experts)
+                  / cfg.routed)
     return int(min(num_tokens, max(c, cfg.min_capacity)))
 
 
@@ -86,17 +93,19 @@ def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _route(x, router_w, cfg: MoEConfig):
     """Returns (gates [T,E] dense fp32, mask [T,E] int32, aux loss, z
-    loss): the reference's softmax router with its top-k renormalised."""
+    loss): the reference's softmax router with its top-k renormalised
+    (unless ``cfg.renormalize`` is False)."""
     logits = x.to(f32) @ router_w.to(f32)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_ids = top_k(probs, cfg.top_k)                    # [T,k]
-    top_p = top_p / top_p.sum(dim=-1, keepdim=True)             # renorm
+    if cfg.renormalize:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
     mask = torch.zeros(probs.shape, dtype=torch.int32, device=x.device)
     mask.scatter_(1, top_ids, 1)
     gates = torch.zeros_like(probs).scatter_(1, top_ids, top_p)
     frac_tokens = mask.to(f32).mean(dim=0)
     frac_probs = probs.mean(dim=0)
-    aux = cfg.num_experts * (frac_tokens * frac_probs).sum()
+    aux = cfg.routed * (frac_tokens * frac_probs).sum()
     z = torch.logsumexp(logits, dim=-1).square().mean()
     return gates, mask, aux, z
 
@@ -108,7 +117,7 @@ def _local_moe(x, router_w, wg, wu, wd, *, cfg: MoEConfig,
     (y [T,D] over those experts, in fp32 under ``combine_fp32``, else in
     x's dtype; metrics)."""
     T, D = x.shape
-    E = cfg.num_experts
+    E = cfg.routed
     E_local = wg.shape[0]
     C = expert_capacity(T, cfg)
     dev = x.device
@@ -209,7 +218,8 @@ def moe_ffn(x, params, cfg: MoEConfig, *, combine_fp32: bool = True,
             (xf, *w), (rep,) * 5, (rep,) * 4)
         aux = dict(zip(_METRICS, aux))
     else:
-        y, aux = _local_moe(xf, *w, cfg=cfg, combine_fp32=combine_fp32)
+        y, aux = _local_moe(xf, *w, cfg=cfg, combine_fp32=combine_fp32,
+                            e_off=cfg.first_expert)
     y = y.to(x.dtype).reshape(B, S, D)
     if cfg.num_shared_experts:
         y = y + L.swiglu(x, params["shared_wg"], params["shared_wu"],

@@ -52,6 +52,19 @@ fp32 and ``conv`` [B,K-1,di]. What a prefill hands over is that fixed-size
 ring and state, whatever the prompt's length. Like RWKV it has no paged
 layout and its prompts are never chunked.
 
+The jamba family (``cfg.block == "jamba"``, AI21's Jamba) interleaves
+two mixers and two FFNs by layer (``ModelConfig.attends``,
+``has_experts``): attention without position encoding where ``cfg.rope``
+is False, in the layers ``i % attn_layer_period == attn_layer_offset``,
+and Jamba's Mamba-1 mixer (``ssm.mamba_apply`` / ``mamba_step``) in the
+others; the MoE FFN in the expert layers, a dense SwiGLU in the rest. It
+serves on the paged layout only: the block pool and the block tables
+``[La, slots, nb]`` cover its La attention layers, and beside them the
+pool dict holds each slot's SSM state, ``ssm_h`` [Lm, slots, di, ds] fp32
+and ``conv`` [Lm, slots, K-1, di] over its Lm Mamba layers
+(``init_slot_state``), updated in place by every decode step. A prefill
+hands over the prompt's KV blocks and that state. Its prompts run whole.
+
 kv-quant (``cfg.kv_quant``) stores the dense cache as int8 with a bf16
 scale per token and KV head (``k_scale``/``v_scale`` [L,B,C,Hkvp]), as
 the reference's ``_kv_quantize``: a prefill attends over the unquantized
@@ -85,7 +98,8 @@ A sliding window on the attn block comes with a later slice
 Under a ``torch.profiler`` session every serving path's layer is two
 spans on the profiler's clock (``serving.tracing.span``):
 ``repro_torch.model.mixer`` (the attention norm through the residual add,
-or the RWKV block) and ``repro_torch.model.ffn`` or ``.moe``
+or the RWKV block; ``repro_torch.model.ssm`` for a jamba Mamba-1 layer's
+norm through its residual add) and ``repro_torch.model.ffn`` or ``.moe``
 (``_ffn_aux``: its norm through its residual add), with
 ``repro_torch.model.logits`` around the head. With no profiler running a
 span is one check.
@@ -132,10 +146,17 @@ def _check_impl(impl: str) -> None:
 def unported(cfg: ModelConfig) -> Optional[str]:
     """Why ``cfg`` cannot run on the port yet (the slice that brings it),
     or None for the families it covers: dense attention (with the vision
-    frontend or none), MoE, RWKV-6 and the hybrid family (with or without
-    its sliding window), with or without kv-quant on the attn block."""
-    if cfg.block not in ("attn", "rwkv", "hybrid"):
+    frontend or none), MoE, RWKV-6, the hybrid family (with or without
+    its sliding window) and the jamba family, with or without kv-quant on
+    the attn block."""
+    if cfg.block not in ("attn", "rwkv", "hybrid", "jamba"):
         return f"{cfg.block} blocks are no family of the reference"
+    if cfg.block == "jamba":
+        if not cfg.ssm_dt_rank:
+            return "a jamba model's Mamba-1 mixer needs ssm_dt_rank"
+        if cfg.sliding_window or cfg.kv_quant:
+            return "a jamba model attends over all positions, in bf16"
+        return None
     if cfg.block == "rwkv":         # its own channel mix; no KV to quantize
         return None
     if cfg.kv_quant and cfg.block != "attn":
@@ -156,15 +177,16 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {why}")
 
 
-def _check_attn(cfg: ModelConfig, what: str) -> None:
+def _check_attn(cfg: ModelConfig, what: str, blocks=("attn",)) -> None:
     """Chunked prefill, the verify pass and the paged layout are for the
     attention family with a bf16 cache, as in the reference: an RWKV or
     hybrid prompt runs whole (its recurrence is already chunked inside its
     scan), a recurrent state or a fixed-size ring has nothing to page, and
     the int8 cache is written only by a whole prefill and a decode
-    step."""
+    step. ``blocks``: the families ``what`` takes (the paged layout also
+    the jamba family, whose prompts run whole too)."""
     _check_family(cfg)
-    if cfg.block != "attn":
+    if cfg.block not in blocks:
         raise ValueError(f"{cfg.name}: {what} is for the attention family "
                          f"only, not {cfg.block} blocks")
     if cfg.kv_quant:
@@ -205,7 +227,7 @@ def _init_moe(gen, cfg: ModelConfig, device) -> Dict[str, torch.Tensor]:
     m, D, dt = cfg.moe, cfg.d_model, cfg.tdtype
     E, F = m.num_experts, m.d_ff_expert
     s = 1.0 / math.sqrt(D)
-    p = {"router": _normal(gen, (D, E), 0.02, device, f32),
+    p = {"router": _normal(gen, (D, m.routed), 0.02, device, f32),
          "wg": _normal(gen, (E, D, F), s, device, dt),
          "wu": _normal(gen, (E, D, F), s, device, dt),
          "wd": _normal(gen, (E, F, D), s / math.sqrt(cfg.num_layers), device,
@@ -223,7 +245,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
     (``transformer.py`` ``_init_attn_layer`` / ``_init_ffn_layer`` /
     ``init_params``; ``rwkv6.init_rwkv_block`` for an RWKV layer; an MoE
     layer's FFN under ``p["moe"]``; a hybrid layer's SSM under
-    ``p["ssm"]`` with its two output norms; a vision configuration's
+    ``p["ssm"]`` with its two output norms; a jamba Mamba-1 layer's mixer
+    under ``p["ssm"]`` (``ssm.init_mamba``) with its norm ``ssm_norm`` in
+    place of the attention's; a vision configuration's
     ``vis_proj`` w1 [vision_dim,D] and w2 [D,D] of std 1/sqrt(vision_dim)
     and 1/sqrt(D)), drawn from a ``torch.Generator`` on ``device``. The
     numbers differ from ``jax.random``'s; tests that need both packages on
@@ -245,28 +269,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
         return torch.zeros(shape, dtype=dt, device=device)
 
     blocks: List[Dict[str, torch.Tensor]] = []
-    for _ in range(cfg.num_layers):
+    for i in range(cfg.num_layers):
         if cfg.block == "rwkv":
             blocks.append(rwkv6.init_rwkv_block(gen, cfg, device=device))
             continue
-        p = {
-            "attn_norm": ones(D),
-            "wq": _normal(gen, (D, Hp, dh), s, device, dt),
-            "wk": _normal(gen, (D, Hkv, dh), s, device, dt),
-            "wv": _normal(gen, (D, Hkv, dh), s, device, dt),
-            "wo": _normal(gen, (Hp, dh, D), deep, device, dt),
-            "ffn_norm": ones(D),
-        }
-        if cfg.moe is not None:
+        if cfg.block == "jamba" and not cfg.attends(i):
+            p = {"ssm_norm": ones(D),
+                 "ssm": ssm.init_mamba(gen, cfg, device=device),
+                 "ffn_norm": ones(D)}
+        else:
+            p = {
+                "attn_norm": ones(D),
+                "wq": _normal(gen, (D, Hp, dh), s, device, dt),
+                "wk": _normal(gen, (D, Hkv, dh), s, device, dt),
+                "wv": _normal(gen, (D, Hkv, dh), s, device, dt),
+                "wo": _normal(gen, (Hp, dh, D), deep, device, dt),
+                "ffn_norm": ones(D),
+            }
+        if cfg.has_experts(i):
             p["moe"] = _init_moe(gen, cfg, device)
         else:
             p["wi_gate"] = _normal(gen, (D, F), s, device, dt)
             p["wi_up"] = _normal(gen, (D, F), s, device, dt)
             p["wo_ffn"] = _normal(gen, (F, D), deep, device, dt)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and "wq" in p:
             p["bq"], p["bk"], p["bv"] = zeros(Hp, dh), zeros(Hkv, dh), \
                 zeros(Hkv, dh)
-        if cfg.qk_norm:
+        if cfg.qk_norm and "wq" in p:
             p["q_norm"], p["k_norm"] = ones(dh), ones(dh)
         if cfg.block == "hybrid":
             p["ssm"] = ssm.init_ssm(gen, cfg, device=device)
@@ -442,8 +471,9 @@ def _qkv(p, xn, cfg: ModelConfig, positions):
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.rope:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     q = constrain(q, "dp", None, "tp", None)
     k = constrain(k, "dp", None, None, None)
     v = constrain(v, "dp", None, None, None)
@@ -705,11 +735,13 @@ def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
 
 def _ffn_aux(p, x, cfg: ModelConfig):
     """The FFN sub-block with its residual: the dense SwiGLU, or the MoE
-    FFN where ``cfg.moe`` is set. Returns (x, the MoE metrics or {})."""
-    with span("repro_torch.model.ffn" if cfg.moe is None
-              else "repro_torch.model.moe"):
+    FFN where the layer has one (``p["moe"]``: every layer where
+    ``cfg.moe`` is set, but in a jamba model). Returns (x, the MoE metrics
+    or {})."""
+    with span("repro_torch.model.moe" if "moe" in p
+              else "repro_torch.model.ffn"):
         xn = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-        if cfg.moe is not None:
+        if "moe" in p:
             y, aux = moe.moe_ffn(xn, p["moe"], cfg.moe,
                                  combine_fp32=cfg.moe_combine_fp32,
                                  expert_tp=cfg.moe_expert_tp)
@@ -721,6 +753,23 @@ def _ffn(p, x, cfg: ModelConfig):
     """``_ffn_aux`` with the MoE metrics dropped, as the reference's
     serving paths drop them."""
     return _ffn_aux(p, x, cfg)[0]
+
+
+def _mamba_layer(p) -> bool:
+    """A jamba layer whose mixer is Mamba-1: its parameters hold an SSM and
+    no attention (a hybrid layer's hold both)."""
+    return "ssm" in p and "wq" not in p
+
+
+def _mamba_mix(p, x, cfg: ModelConfig, state, step: bool):
+    """A Mamba-1 layer's mixer with its residual, from ``state``: its norm,
+    ``ssm.mamba_apply`` over a prompt (or ``mamba_step`` over one token)
+    and the add. Returns (x, the new state)."""
+    with span("repro_torch.model.ssm"):
+        xn = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
+        fn = ssm.mamba_step if step else ssm.mamba_apply
+        y, state = fn(p["ssm"], xn, state, cfg)
+        return x + y, state
 
 
 def _hybrid_mix(p, attn_out, ssm_out, cfg: ModelConfig):
@@ -745,7 +794,12 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     [B,S,Hkvp,dh]} (int8 with ``k_scale``/``v_scale`` [B,S,Hkvp] under
     kv-quant: the attention itself ran on the unquantized K/V), an RWKV
     layer's final state, or a hybrid layer's K/V (the W-row ring under a
-    sliding window) with its SSM state ``ssm_h``/``conv``."""
+    sliding window) with its SSM state ``ssm_h``/``conv``; a jamba Mamba-1
+    layer's entry is its SSM state alone."""
+    if _mamba_layer(p):
+        x, state = _mamba_mix(p, x, cfg, ssm.init_ssm_state(
+            cfg, x.shape[0], device=x.device), step=False)
+        return _ffn(p, x, cfg), {"ssm_h": state["h"], "conv": state["conv"]}
     with span("repro_torch.model.mixer"):
         if cfg.block == "rwkv":
             state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
@@ -801,18 +855,23 @@ def prefill_full(params, cfg: ModelConfig, inputs, *,
     a hybrid cache is S rows wide (W, the ring, under a sliding window) and
     carries ``ssm_h``/``conv``: as in the reference, only the attention
     family grows to ``capacity`` (its int8 values and their scales alike
-    under kv-quant)."""
+    under kv-quant). A jamba cache stacks K/V over its attention layers
+    and ``ssm_h``/``conv`` over its Mamba-1 layers."""
     _check_family(cfg)
     x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
-    n, cache = len(params["blocks"]), {}
-    for i, p in enumerate(params["blocks"]):
+    n, cache, written = len(params["blocks"]), {}, {}
+    for p in params["blocks"]:
         x, entry = _layer_prefill(p, x, cfg, impl)
         for key in _cache_keys(cfg):
+            if key not in entry:
+                continue
+            i = written.get(key, 0)
             if i == 0:
-                cache[key] = _stacked(entry[key], n)
+                cache[key] = _stacked(entry[key], _cache_layers(cfg, key, n))
             _write_layer(cache[key], i, entry[key])
+            written[key] = i + 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1])
     if cfg.block == "attn" and capacity > S:    # grow to the capacity
@@ -831,8 +890,12 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
     reference's ``init_cache``. A sliding window makes C = W (the ring)
     whatever ``capacity``; kv-quant makes K/V int8 and adds the bf16
     ``k_scale``/``v_scale`` [L,B,C,Hkvp]; a hybrid cache adds the zero SSM
-    state ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]."""
+    state ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]. A jamba
+    model has no dense layout (``init_slot_state``)."""
     _check_family(cfg)
+    if cfg.block == "jamba":
+        raise ValueError(f"{cfg.name}: a jamba model serves on the paged "
+                         "layout only")
     pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.block == "rwkv":
         state = rwkv6.init_rwkv_state(cfg, cfg.num_layers * batch,
@@ -868,9 +931,18 @@ def _cache_keys(cfg: ModelConfig):
     if cfg.block == "rwkv":
         return ("s", "tm_x", "cm_x")
     keys = ("k", "v") + (("k_scale", "v_scale") if cfg.kv_quant else ())
-    if cfg.block == "hybrid":
+    if cfg.block in ("hybrid", "jamba"):
         keys += ("ssm_h", "conv")
     return keys
+
+
+def _cache_layers(cfg: ModelConfig, key: str, n: int) -> int:
+    """The layers a cache entry stacks: all ``n`` of them, but in a jamba
+    model its attention layers (K/V) or its Mamba-1 layers (the state)."""
+    if cfg.block != "jamba":
+        return n
+    return len(cfg.mamba_layer_ids if key in ("ssm_h", "conv")
+               else cfg.attn_layer_ids)
 
 
 def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
@@ -956,8 +1028,9 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
 def supports_paged(cfg: ModelConfig) -> bool:
     """Paged serving covers the dense-attention family without quantized
     KV or a sliding window (a ring and a recurrent state have no KV growth
-    to page)."""
-    return (cfg.block == "attn" and not cfg.kv_quant
+    to page), and the jamba family (its attention layers' KV paged, its
+    Mamba-1 state per slot beside the pool)."""
+    return (cfg.block in ("attn", "jamba") and not cfg.kv_quant
             and not cfg.sliding_window)
 
 
@@ -967,6 +1040,20 @@ def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     shape = (num_blocks, block_size, cfg.padded_kv_heads, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
+
+
+def init_slot_state(cfg: ModelConfig, slots: int, *, device):
+    """A jamba engine's zero SSM state for each of its ``slots``, held in
+    its pool dict beside the blocks: ``ssm_h`` [Lm, slots, di, ds] fp32 and
+    ``conv`` [Lm, slots, K-1, di] over the Lm Mamba-1 layers (none in any
+    other family)."""
+    Lm = len(cfg.mamba_layer_ids)
+    if not Lm:
+        return {}
+    state = ssm.init_ssm_state(cfg, Lm * slots, device=device)
+    return {"ssm_h": state["h"].reshape((Lm, slots) + state["h"].shape[1:]),
+            "conv": state["conv"].reshape((Lm, slots)
+                                          + state["conv"].shape[1:])}
 
 
 def gather_blocks(pool, ids):
@@ -1019,9 +1106,10 @@ def attn_decode_paged(p, x1, cfg: ModelConfig, pool_k, pool_v, tbl, pos,
 
 def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
                       impl: str = "kernel", *, graphs=None):
-    """Batched decode step on the paged layout. tables: [L,B,nb] int32;
-    pos, tokens: [B]. Returns (logits [B,Vp] fp32, pool, pos+1); the pool
-    is updated in place.
+    """Batched decode step on the paged layout. tables: [L,B,nb] int32 (a
+    jamba model's over its attention layers); pos, tokens: [B]. Returns
+    (logits [B,Vp] fp32, pool, pos+1); the pool (with a jamba model's
+    per-slot SSM state) is updated in place.
 
     ``graphs``: an engine's ``serving.graphs.DecodeGraphs``. With it, on a
     CUDA device under ``impl="kernel"``, the step is one replay of the
@@ -1036,7 +1124,7 @@ def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
             return logits, pos1
         logits, pos1 = graphs.run(
             body, (tables, pos, tokens),
-            pinned=(pool["k"], pool["v"], params["embed"]),
+            pinned=tuple(pool.values()) + (params["embed"],),
             counters=(decode_attention_paged,))
         return logits, pool, pos1
     return _decode_step_paged_eager(params, cfg, pool, tables, pos, tokens,
@@ -1045,16 +1133,26 @@ def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
 
 def _decode_step_paged_eager(params, cfg: ModelConfig, pool, tables, pos,
                              tokens, impl: str):
-    """``decode_step_paged``'s body, every op launched as it is reached."""
-    _check_attn(cfg, "the paged layout")
+    """``decode_step_paged``'s body, every op launched as it is reached: a
+    jamba model's Mamba-1 layers step their slots' state in place."""
+    _check_attn(cfg, "the paged layout", ("attn", "jamba"))
     x = embed_tokens(params, cfg, tokens[:, None])
     pk, pv = pool["k"], pool["v"]
-    for p, tbl in zip(params["blocks"], tables):
-        with span("repro_torch.model.mixer"):
-            xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-            attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv, tbl, pos,
-                                            impl=impl)
-            x = x + attn_out
+    a = m = 0
+    for p in params["blocks"]:
+        if _mamba_layer(p):
+            state = {"h": pool["ssm_h"][m], "conv": pool["conv"][m]}
+            x, new = _mamba_mix(p, x, cfg, state, step=True)
+            state["h"].copy_(new["h"])
+            state["conv"].copy_(new["conv"])
+            m += 1
+        else:
+            with span("repro_torch.model.mixer"):
+                xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
+                attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv,
+                                                tables[a], pos, impl=impl)
+                x = x + attn_out
+            a += 1
         x = _ffn(p, x, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, 0]), pool, pos + 1
@@ -1189,8 +1287,11 @@ def forward_hidden(params, cfg: ModelConfig, inputs):
     [B,S,D], the frontend's loss mask or None, the MoE metrics averaged
     over the layers). With ``cfg.remat`` each layer is recomputed in the
     backward pass (``torch.utils.checkpoint``, the reference's
-    ``jax.checkpoint`` of its scan body)."""
+    ``jax.checkpoint`` of its scan body). A jamba model serves only."""
     _check_family(cfg)
+    if cfg.block == "jamba":
+        raise NotImplementedError(f"{cfg.name}: training is not ported "
+                                  "for jamba blocks")
     x, mask = embed_inputs(params, cfg, inputs)
     aux = _zero_aux(x.device)
     for p in params["blocks"]:

@@ -18,7 +18,14 @@ surface, as in ``repro.serving.engine``:
   ``serving/blocks.py``). ``insert`` scatters only the request's blocks,
   ``evict`` is an O(1) refcount decrement per block, decode attends over a
   pow2-bucketed window that tracks the active context, and the prefix
-  cache shares blocks between entries by refcount, never by copy.
+  cache shares blocks between entries by refcount, never by copy. A jamba
+  engine pages the KV of its attention layers alone (pool and tables
+  sized over them) and keeps beside the pool each slot's SSM state
+  (``ssm_h``/``conv``, ``transformer.init_slot_state``), allocated once:
+  its handoff carries the prompt's blocks and that state, ``insert``
+  copies the state into the slot's rows, and eviction leaves them for the
+  next insert to overwrite. It has no chunked prefill and no prefix
+  cache: a Mamba layer's state after a prefix is not kept.
 - **dense** (``paged=False``, and always for RWKV-6, the hybrid family
   and kv-quant): one ``[slots, capacity]``-wide cache with per-slot
   positions (int8 with bf16 scales per token and head under kv-quant, so
@@ -96,20 +103,24 @@ from repro_torch.serving.tracing import span
 
 class PagedCache:
     """Paged KV-handoff payload: the request's own blocks, free-floating
-    (gathered off the source pool). ``nbytes`` is the actual transfer size
-    — block-rounded true length, not the slot capacity — which is what
+    (gathered off the source pool), and a jamba model's SSM state after
+    the prompt. ``nbytes`` is the actual transfer size — block-rounded true
+    length, not the slot capacity, and the state — which is what
     ``cluster.kv_bytes`` reads."""
 
-    __slots__ = ("blocks", "length")
+    __slots__ = ("blocks", "length", "state")
 
-    def __init__(self, blocks: Dict[str, torch.Tensor], length: int):
+    def __init__(self, blocks: Dict[str, torch.Tensor], length: int,
+                 state: Optional[Dict[str, torch.Tensor]] = None):
         self.blocks = blocks            # {"k","v": [L, nb, Bs, Hkvp, dh]}
         self.length = int(length)
+        self.state = state or {}        # {"ssm_h": [Lm, di, ds], "conv"}
 
     @property
     def nbytes(self) -> int:
         bk = self.blocks["k"]
-        return 2 * bk.numel() * bk.element_size()
+        return 2 * bk.numel() * bk.element_size() + sum(
+            t.numel() * t.element_size() for t in self.state.values())
 
 
 class PrefixBlocks:
@@ -209,18 +220,25 @@ class Engine:
             raise ValueError(f"paged chunked prefill needs chunk_size "
                              f"({chunk_size}) % block_size ({block_size}) "
                              "== 0")
+        if chunk_size and cfg.block == "jamba":
+            raise ValueError(f"{cfg.name}: a jamba model's prompts run "
+                             "whole: no chunked prefill, no prefix cache")
         self._free = list(range(slots))
         self.slot_req: Dict[int, Any] = {}
         self._graphs: Optional[DecodeGraphs] = None
         with_prefix = bool(chunk_size) and cfg.block == "attn"
+        # the layers whose KV the pool pages
+        self._kv_layers = len(cfg.attn_layer_ids)
         if self.paged:
-            Lr = cfg.num_layers
+            Lr = self._kv_layers
             self._nb_max = -(-capacity // block_size)
             if pool_blocks is None:
                 # full decode occupancy + in-flight prefill + prefix headroom
                 pool_blocks = 1 + Lr * self._nb_max * (slots + 4)
             self.pool = T.init_block_pool(cfg, pool_blocks, block_size,
                                           device=self.device)
+            self.pool.update(T.init_slot_state(cfg, slots,
+                                               device=self.device))
             self._alloc = BlockAllocator(pool_blocks)
             self._tables = np.zeros((Lr, slots, self._nb_max), np.int32)
             self._pos = np.zeros((slots,), np.int32)
@@ -291,7 +309,17 @@ class Engine:
                 "capacity_weight": self.capacity_weight,
                 "device": str(self.device), "impl": self.impl,
                 "graph_captures": self.graph_captures,
-                "graph_replays": self.graph_replays}
+                "graph_replays": self.graph_replays,
+                "ssm_state_bytes": self.ssm_state_bytes}
+
+    @property
+    def ssm_state_bytes(self) -> int:
+        """A slot's SSM state (``ssm_h`` and ``conv``: a jamba engine's
+        beside its block pool, a hybrid engine's in its dense cache; 0
+        where the model has none)."""
+        held = self.pool if self.paged else self.cache
+        return sum(held[k][:, 0].numel() * held[k].element_size()
+                   for k in ("ssm_h", "conv") if k in held)
 
     @property
     def graph_captures(self) -> int:
@@ -348,16 +376,17 @@ class Engine:
     # ---- prefill role ---------------------------------------------------
 
     def _prefill_payload(self, tokens: torch.Tensor):
-        """Full prefill -> (logits, handoff blocks). The B=1 cache is padded
-        to whole blocks and reshaped to [L, nb, Bs, Hkvp, dh] (block-padded
-        true length, never the slot capacity); logits come before any
-        padding. The payload stays on the device."""
+        """Full prefill -> (logits, handoff blocks, SSM state). The B=1
+        cache is padded to whole blocks and reshaped to [L, nb, Bs, Hkvp,
+        dh] (block-padded true length, never the slot capacity); logits
+        come before any padding; a jamba model's state after the prompt
+        rides beside. The payload stays on the device."""
         logits, cache = T.prefill_full(self.params, self.cfg,
                                        {"tokens": tokens}, impl=self.impl)
         S = tokens.shape[1]
         Bs = self.block_size
         Sb = -(-S // Bs) * Bs
-        blocks = {}
+        blocks, state = {}, {}
         with span("repro_torch.engine.prefill.payload"):
             for kk in ("k", "v"):
                 row = cache[kk][:, 0]                     # [L, S, Hkvp, dh]
@@ -367,7 +396,10 @@ class Engine:
                         dim=1)
                 blocks[kk] = row.reshape(row.shape[0], Sb // Bs, Bs,
                                          *row.shape[2:])
-        return logits, blocks
+            if "ssm_h" in cache:                # a jamba model's state
+                state["ssm_h"] = cache["ssm_h"][:, 0]
+                state["conv"] = cache["conv"][:, 0]
+        return logits, blocks, state
 
     def _first_token(self, logits) -> int:
         with span("repro_torch.engine.prefill.readback"):
@@ -384,8 +416,8 @@ class Engine:
             t0 = time.perf_counter()
             tokens = self._tokens(prompt)
             if self.paged:
-                logits, blocks = self._prefill_payload(tokens)
-                payload = PagedCache(blocks, len(prompt))
+                logits, blocks, state = self._prefill_payload(tokens)
+                payload = PagedCache(blocks, len(prompt), state)
             else:
                 logits, payload = T.prefill_full(
                     self.params, self.cfg, {"tokens": tokens},
@@ -456,7 +488,7 @@ class Engine:
         B=1 cache), share prefix blocks through the refcounted
         PrefixCache, gather only the request's blocks as the payload."""
         Bs = self.block_size
-        Lr = self.cfg.num_layers
+        Lr = self._kv_layers
         if chunk % Bs:
             raise ValueError(f"chunk {chunk} is not block-aligned ({Bs})")
         S = len(prompt)
@@ -514,8 +546,9 @@ class Engine:
     def insert(self, req, payload) -> int:
         """KV handoff: place a prefilled request into a free slot. Paged
         engines scatter only the request's blocks (O(request), not
-        O(capacity)); dense engines copy a cache-wide row (RWKV: the
-        slot's whole state; hybrid: the ring and the SSM state)."""
+        O(capacity)), and a jamba engine copies the SSM state into the
+        slot's rows, in place; dense engines copy a cache-wide row (RWKV:
+        the slot's whole state; hybrid: the ring and the SSM state)."""
         self._check()
         if self.paged and not isinstance(payload, PagedCache):
             raise TypeError("paged engine got a dense handoff payload; "
@@ -527,7 +560,7 @@ class Engine:
             slot = self._free.pop()
             if self.paged:
                 nbk = payload.blocks["k"].shape[1]
-                Lr = self.cfg.num_layers
+                Lr = self._kv_layers
                 try:
                     self._reserve(Lr * nbk)
                     ids = np.asarray(self._alloc.alloc(Lr * nbk),
@@ -538,6 +571,8 @@ class Engine:
                 T.scatter_blocks(self.pool,
                                  torch.as_tensor(ids, device=self.device),
                                  payload.blocks)
+                for kk, t in payload.state.items():
+                    self.pool[kk][:, slot].copy_(t)
                 self._tables[:, slot, :] = 0
                 self._tables[:, slot, :nbk] = ids
                 self._pos[slot] = payload.length
@@ -588,7 +623,7 @@ class Engine:
         always gives the same views, which are its graph's inputs. The
         host buffer is written again only after the step's closing
         synchronise, when the copy out of it has finished."""
-        S, Lr = self.slots, self.cfg.num_layers
+        S, Lr = self.slots, self._kv_layers
         n = 3 * S + Lr * S * nb
         host = self._stage_host.numpy()
         toks = host[:2 * S].view(np.int64)
@@ -629,7 +664,7 @@ class Engine:
 
     def _decode_step_paged(self, tokens_by_slot: Dict[int, int]):
         Bs = self.block_size
-        Lr = self.cfg.num_layers
+        Lr = self._kv_layers
         with span("repro_torch.engine.decode.prepare"):
             # grow: a slot whose next write crosses a block boundary gets a
             # fresh block per layer before the step (O(1) host work)

@@ -45,8 +45,20 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cfg(moe: bool) -> ModelConfig:
+def _cfg(kind: str) -> ModelConfig:
     # head size 64, a shape the attention kernels take; bf16
+    if kind == "jamba":     # one period of Jamba's layers, 8 of 16 experts
+        return ModelConfig(
+            name="graph-card-jamba", family="hybrid", num_layers=8,
+            d_model=256, num_heads=4, num_kv_heads=2, d_ff=512,
+            vocab_size=160, remat=False, dtype="bfloat16", block="jamba",
+            attn_layer_period=8, attn_layer_offset=4, expert_layer_period=2,
+            expert_layer_offset=1, rope=False, ssm_expand=2, ssm_dt_rank=16,
+            ssm_conv_bias=True,
+            moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=128,
+                          capacity_factor=8.0, router_experts=16,
+                          renormalize=False))
+    moe = kind == "moe"
     return ModelConfig(name="graph-card", family="moe" if moe else "dense",
                        num_layers=3, d_model=256, num_heads=4,
                        num_kv_heads=2, d_ff=512, vocab_size=160,
@@ -85,8 +97,8 @@ class _Logits:
         T.decode_step_paged = self.fn
 
 
-@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
-def test_graphed_engine_equals_eager(cuda, moe):
+@pytest.mark.parametrize("kind", ["dense", "moe", "jamba"])
+def test_graphed_engine_equals_eager(cuda, kind):
     """24 decode steps on a graphed engine and on an eager one (its graphs
     taken away) with the same weights and the same handoffs: a 12-token
     request alone, a 60-token one joining at step 8 and leaving at step
@@ -96,8 +108,9 @@ def test_graphed_engine_equals_eager(cuda, moe):
     benchmark's logit capture installed every replayed step leaves its
     row maxima; one capture a window met, one replay a step; the paged
     kernel's launch count advances by a layer's worth each step either
-    way; the captures stay off the step times."""
-    cfg = _cfg(moe)
+    way; the captures stay off the step times. A jamba engine's SSM state
+    is stepped in place inside the replay."""
+    cfg = _cfg(kind)
     pre, graphed, eager = _engines(cfg, 3)
     eager._graphs = None
     assert graphed.graph_captures == graphed.graph_replays == 0
@@ -131,7 +144,7 @@ def test_graphed_engine_equals_eager(cuda, moe):
                     toks[eng] = eng.decode_step(toks[eng])
                 assert torch.equal(box["max"], rec.rows[0].amax(dim=-1))
                 assert (dec_ops.decode_attention_paged.launches
-                        == n0 + cfg.num_layers)
+                        == n0 + len(cfg.attn_layer_ids))
                 rows[eng] = rec.rows[0]
             assert toks[graphed] == toks[eager], step
             assert torch.equal(rows[graphed], rows[eager]), step
@@ -153,7 +166,7 @@ def test_graphed_engine_equals_eager(cuda, moe):
 def test_moved_pool_is_refused(cuda):
     """A replay whose block pool no longer sits where the capture read it
     raises instead of reading freed memory."""
-    pre, dec = _engines(_cfg(False), 2)
+    pre, dec = _engines(_cfg("dense"), 2)
     tok, payload = pre.prefill(np.arange(12, dtype=np.int32))
     slot = dec.insert(types.SimpleNamespace(), payload)
     tok = dec.decode_step({slot: tok})[slot]
@@ -167,8 +180,8 @@ def _read(name, td):
     return fn(types.SimpleNamespace(td=td), variant)
 
 
-@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
-def test_replayed_steps_under_the_profiler(cuda, moe):
+@pytest.mark.parametrize("kind", ["dense", "moe"])
+def test_replayed_steps_under_the_profiler(cuda, kind):
     """The benchmark's order: the profiler started once before any
     capture, then a prefill, an insert and decode steps (the first
     captures) under it. The program's spans stay off the device's
@@ -177,9 +190,10 @@ def test_replayed_steps_under_the_profiler(cuda, moe):
     step only; every replay's kernels are on the device's timeline (the
     paged kernel once a layer a step, what ``attn_decode_roofline``
     counts); over replays alone the graph share reads 100, the launches a
-    handful, and ``model.moe_share`` nothing."""
+    handful."""
     import torch.profiler  # noqa: F401
-    cfg = _cfg(moe)
+    moe = kind == "moe"
+    cfg = _cfg(kind)
     pre, dec = _engines(cfg, 2, slots=4, capacity=96)
     with trace.profiler():                  # the profiler's own first start
         torch.ones(1, device=cuda).add_(1)
@@ -231,4 +245,3 @@ def test_replayed_steps_under_the_profiler(cuda, moe):
     assert len(td.kernels("paged_decode_kernel")) == 4 * L
     assert len(td.kernels("split_merge_kernel")) == 4 * L
     assert 0.0 < _read("engine.decode_host_share.itl", td) <= 100.0
-    assert _read("model.moe_share.itl", td) is None

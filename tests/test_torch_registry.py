@@ -52,6 +52,11 @@ def test_config_mirrors_reference(arch):
         cfg = (C.get_config if full else C.get_smoke_config)(arch)
         jcfg = (JC.get_config if full else JC.get_smoke_config)(arch)
         assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+        # the port-only settings (init-only, outside asdict) at their
+        # defaults, which mean what the reference's configuration means
+        for obj in (cfg, cfg.moe):
+            for name in getattr(obj, "PORT_ONLY", ()):
+                assert getattr(obj, name) == getattr(type(obj), name), name
         for prop in ("dh", "q_group", "padded_heads", "padded_kv_heads",
                      "padded_vocab", "can_group_decode", "is_attention_free",
                      "sub_quadratic"):
