@@ -27,7 +27,13 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      S=500 and a near-total decay) and decode shapes, from a nonzero
      state, and at the edges of its column blocks (N = 32 and 64, bf16
      and fp32 inputs, B > 1), each also in place, then timed beside its
-     plain chunked version (no PyTorch call computes the recurrence);
+     plain chunked version (no PyTorch call computes the recurrence); the
+     selective-scan kernel (the SSM mixers' prompt scan) against its plain
+     chunked version (``ssm._scan``) at Jamba's prefill shapes (S = 1,024
+     and 2,048 at d_inner 8,192, a delta per channel) and hymba's (S =
+     512 at 1,600, one shared delta), from a nonzero state, within
+     SCAN_RTOL of each row's norm, then timed beside the plain scan and
+     the bound (no PyTorch call computes the recurrence);
   4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
      seed 0), prefill and paged decode steps with the kernels, with the
      plain path, and with the plain path in float32 on the same weights,
@@ -130,15 +136,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      bf16, random weights from seed 0: a prefill of 1,100 tokens (past the
      window: banded flash, the ring rolled) and 8 dense decode steps (the
      ring wrapped), three ways by phase 4's rule; layer 0's ring K/V and
-     SSM state must be bit-identical between the kernel and plain paths,
-     and every flash and dense decode call, in all layers, agree with its
-     plain version on the same inputs; the plain bf16 path's distance
+     convolution state must be bit-identical between the kernel and plain
+     paths and its SSM state within SCAN_RTOL (the kernel path's prompt
+     scan is the selective-scan kernel), and every flash and dense decode
+     call, in all layers, agree with its plain version on the same inputs; the plain bf16 path's distance
      from float32 is printed at 2, 4, 8 and 16 layers too, and at 2 and 4
      on the host's CPU from the same weights and prompt;
  22. hymba serve: ``serve.main --arch hymba-1.5b`` with phase 5's traffic;
-     fails unless all 16 complete, flash ran exactly 32 times per prefill
-     and dense decode exactly 32 times per decode step and per engine's
-     warm-up step, neither paged decode nor WKV ran, and each handoff
+     fails unless all 16 complete, flash and the selective scan ran
+     exactly 32 times per prefill and dense decode exactly 32 times per
+     decode step and per engine's warm-up step, neither paged decode nor
+     WKV ran, and each handoff
      carried the ring and the SSM state, 45,527,040 bytes;
  23. hymba profile: phase 11 for hymba's engine, with the SSM branch's
      device time, share and launches per step (``ssm`` spans around
@@ -289,6 +297,12 @@ KERNEL_ATOL = 2e-2
 # the WKV kernel and its oracle both compute in fp32 from the same inputs
 # and differ only in summation order: relative to the output's scale
 WKV_RTOL = 1e-4
+# the selective-scan kernel and its plain chunked version both compute in
+# fp32 from the same inputs and differ only in how they compose positions
+# (a scan of 16-position segments against 256-position doubling chunks):
+# relative to each output row's norm
+SCAN_RTOL = 1e-4
+SCAN_STATE = 16                         # the SSM state size of both models
 L2_BYTES = 50 << 20                     # H100 SXM L2 cache
 # the serve paths' traffic (phases 5, 10, 13 and 14)
 SERVE_ARGS = ["--requests", "16", "--isl", "512", "--osl", "64", "--slots",
@@ -449,7 +463,8 @@ def ptxas_entry(line: str) -> str:
     the last name of its mangled nested name, with its template arguments:
     the WKV kernel's (``wkv_kernel<64, bf16>``), the attention kernels'
     head dim (``flash_fwd_kernel<64>``), the flash kernel's window
-    (``flash_fwd_kernel<64, window>``)."""
+    (``flash_fwd_kernel<64, window>``), the selective scan's state size
+    and delta (``selective_scan_kernel<16, shared delta>``)."""
     m = line.split("'")[1]
     i, name = (3 if m.startswith("_ZN") else 2), m
     while i < len(m) and m[i].isdigit():
@@ -464,8 +479,11 @@ def ptxas_entry(line: str) -> str:
         name += f"<{targs.group(1)}, " + (
             "fp32" if targs.group(3) == "f" else "bf16") + ">"
     elif targs and targs.group(2):
+        flag = (("shared delta", "delta per channel")
+                if name.startswith("selective_scan") else
+                ("window", "no window"))
         name += f"<{targs.group(1)}, " + (
-            "window" if targs.group(2) == "1" else "no window") + ">"
+            flag[0] if targs.group(2) == "1" else flag[1]) + ">"
     elif targs:
         name += f"<{targs.group(1)}>"
     return name
@@ -702,6 +720,90 @@ def wkv_phase(torch, dev, gen, timer, H: int = 32, N: int = 64,
     row = time_wkv(1, S)
     row["decode_shape"] = time_wkv(8, 1)
     time_wkv(1, long_S)
+    return err_max, row
+
+
+def row_err(out, ref) -> float:
+    """The largest error relative to its row's norm, rows along the last
+    dim."""
+    diff = (out.double() - ref.double()).norm(dim=-1)
+    return (diff / ref.double().norm(dim=-1).clamp_min(1e-30)).max().item()
+
+
+def scan_case(torch, gen, B, S, di, dev, shared=False):
+    """fp32 inputs as a mixer passes them: delta = softplus of a dt around
+    Mamba's init (~0.1), per channel or one shared [B,S]; A = -(1..16) per
+    channel, perturbed; B and C of unit scale (RMS-normed); a nonzero
+    state."""
+    def f(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    ds = SCAN_STATE
+    delta = torch.nn.functional.softplus(
+        (f(B, S) if shared else f(B, S, di)) - 2.5)
+    A = -torch.exp(torch.log(torch.arange(1, ds + 1, device=dev).float()
+                             )[None] + 0.1 * f(di, ds))
+    return f(B, S, di), f(B, S, ds), f(B, S, ds), delta, A, 0.5 * f(B, di, ds)
+
+
+def scan_work(B, S, di, shared=False):
+    """The recurrence's least work: 9 fp32 operations a state update (the
+    benchmark's SCAN_FLOPS: delta A, its exp, delta x, its product with B,
+    the update and C h); x, delta (one per channel or one shared), B and C
+    read once, A and the state read once, y and the last state written
+    once."""
+    ds = SCAN_STATE
+    flops = 9.0 * B * S * di * ds
+    nbytes = 4.0 * (B * S * di * (2 if shared else 3)
+                    + B * S * (2 * ds + (1 if shared else 0))
+                    + di * ds + 2 * B * di * ds)
+    return flops, nbytes
+
+
+def scan_phase(torch, dev, gen, timer):
+    """The selective-scan kernel at Jamba's prefill shapes (di 8,192, a
+    delta per channel, S 1,024 and 2,048) and hymba's (di 1,600, one
+    shared delta, S 512), from a nonzero state, against its plain chunked
+    version within SCAN_RTOL of each row's norm; then timed at each beside
+    the plain version and the bound. Returns (the largest row error, the
+    Jamba S = 1,024 timings with the others under their shapes)."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.models.ssm import _scan
+    shapes = {"jamba_1024": (1, 1024, 8192, False),
+              "jamba_2048": (1, 2048, 8192, False),
+              "hymba_512": (1, 512, 1600, True)}
+    err_max = 0.0
+    for name, (B, S, di, shared) in shapes.items():
+        case = scan_case(torch, gen, B, S, di, dev, shared)
+        y, h = scan_ops.selective_scan(*case)
+        torch.cuda.synchronize()
+        y_p, h_p = _scan(*case)
+        err = max(row_err(y, y_p), row_err(h, h_p))
+        log(f"# scan {name} B={B} S={S} di={di} shared delta {shared}: "
+            f"row error against the plain scan {err:.3e}")
+        if not (math.isfinite(err) and bool(torch.isfinite(y).all())
+                and err <= SCAN_RTOL):
+            fail(f"selective scan {name} disagrees with its plain version: "
+                 f"{err}")
+        err_max = max(err_max, err)
+
+    def time_scan(name):
+        B, S, di, shared = shapes[name]
+        flops, nbytes = scan_work(B, S, di, shared)
+        cases = [scan_case(torch, gen, B, S, di, dev, shared)
+                 for _ in range(copies(nbytes))]
+        res = {"ms": timer(scan_ops.selective_scan, cases),
+               "device_ms": timer.device(scan_ops.selective_scan, cases),
+               "plain_ms": timer(_scan, cases, runs=3),
+               "library_ms": None}  # no PyTorch call computes the scan
+        res["bound_ms"], res["bound_by"] = bound(flops, nbytes,
+                                                 PEAK_FP32_FLOPS)
+        log(f"# scan time {name} B={B} S={S} di={di} ({len(cases)} input "
+            "sets): " + json.dumps(res))
+        return res
+
+    row = time_scan("jamba_1024")
+    row["jamba_2048"] = time_scan("jamba_2048")
+    row["hymba_512"] = time_scan("hymba_512")
     return err_max, row
 
 
@@ -1166,11 +1268,14 @@ def hymba_model_phase(torch, cfg, dev, gen, S: int = 1100, steps: int = 8):
     version's own cache (the ring wraps), three ways (kernel bf16, plain
     bf16, plain fp32 upcast one block at a time), held by ``hold``.
 
-    The kernel and plain paths differ only in attention, and no layer's
-    cache entry depends on its own attention output: layer 0's ring K/V
-    and SSM state must be equal bit for bit between them after the
-    prefill and after each decode step, which checks the ring placement
-    and the in-place writes of the kernel path. Every flash and dense
+    The kernel and plain paths differ only in attention and the prompt's
+    scan, and no layer's cache entry depends on its own attention output:
+    layer 0's ring K/V and convolution state must be equal bit for bit
+    between them after the prefill and after each decode step, which
+    checks the ring placement and the in-place writes of the kernel path,
+    and its SSM state within SCAN_RTOL of each row's norm (the kernel
+    path's prefill scans with the selective-scan kernel, the plain path
+    with ``_scan``; both decode steps are the same plain step). Every flash and dense
     decode call of the kernel path, in all layers, is held against its
     plain version on the same inputs (``AttentionTap``): bf16 sits far
     from fp32 on random hymba weights, so ``hold`` alone says little. The
@@ -1189,7 +1294,8 @@ def hymba_model_phase(torch, cfg, dev, gen, S: int = 1100, steps: int = 8):
 
     def same_layer0(what, ck, cp):
         same = {key: torch.equal(ck[key][0], cp[key][0])
-                for key in ("k", "v", "ssm_h", "conv")}
+                for key in ("k", "v", "conv")}
+        same["ssm_h"] = row_err(ck["ssm_h"][0], cp["ssm_h"][0]) <= SCAN_RTOL
         if not all(same.values()):
             fail(f"{cfg.name} {what}: layer 0's cache differs between the "
                  f"kernel and the plain path: {same}")
@@ -1232,8 +1338,9 @@ def hymba_model_phase(torch, cfg, dev, gen, S: int = 1100, steps: int = 8):
 
         drift = {n: drift_at(n, dev) for n in (2, 4, 8, 16)}
         host = {n: drift_at(n, "cpu") for n in (2, 4)}
-    log(f"# model {cfg.name}: layer 0's ring K/V, ssm_h and conv "
-        "bit-identical between the kernel and plain paths at every step")
+    log(f"# model {cfg.name}: layer 0's ring K/V and conv bit-identical "
+        "between the kernel and plain paths at every step, ssm_h within "
+        f"{SCAN_RTOL} of each row's norm")
     log(f"# model {cfg.name} prefill S={S}: plain bf16 vs fp32 / scale at "
         "the first n layers: " + ", ".join(f"{n}: {d:.3e}"
                                           for n, d in drift.items())
@@ -1893,7 +2000,8 @@ def paged_serve(serve, drive, sla, get_config, arch: str, path: str,
 
 def hymba_serve(serve, drive, sla, get_config) -> dict:
     """Phase 22: hymba-1.5b served disaggregated with phase 5's traffic;
-    every prefill through flash (banded) and every decode step (and each
+    every prefill through flash (banded) and the selective scan, once per
+    layer exactly, and every decode step (and each
     of the 3 engines' warm-up steps) through dense decode over the ring,
     once per layer exactly; no paged or WKV launch; each handoff the
     request's 1024-row ring K/V (32 x 1024 x 5 x 64 x 2 bytes x 2 =
@@ -1908,6 +2016,9 @@ def hymba_serve(serve, drive, sla, get_config) -> dict:
         fail(f"hymba serve completed {rec['completed']} of {requests}")
     if n["flash"] != Lr * rec["prefills"] or rec["prefills"] < requests:
         fail(f"hymba serve: {n['flash']} flash launches for "
+             f"{rec['prefills']} prefills of {Lr} layers")
+    if n["scan"] != Lr * rec["prefills"]:
+        fail(f"hymba serve: {n['scan']} selective-scan launches for "
              f"{rec['prefills']} prefills of {Lr} layers")
     if n["dense"] != Lr * (rec["decode_steps"] + engines) \
             or rec["decode_steps"] < 1:
@@ -1928,8 +2039,8 @@ def hymba_serve(serve, drive, sla, get_config) -> dict:
                         and rec["transfers"] < requests)):
         fail(f"hymba serve moved {moved} bytes in {rec['transfers']} "
              f"transfers; one handoff is {handoff} bytes")
-    log(f"# {HYMBA} serve: flash {n['flash']} = {Lr} x {rec['prefills']} "
-        f"prefills, dense {n['dense']} = {Lr} x ({rec['decode_steps']} "
+    log(f"# {HYMBA} serve: flash {n['flash']} and scan {n['scan']} = {Lr} x "
+        f"{rec['prefills']} prefills, dense {n['dense']} = {Lr} x ({rec['decode_steps']} "
         f"decode steps + {engines} warm-ups); {rec['transfers']} handoffs x "
         f"{handoff} bytes (ring K/V, ssm_h, conv) = {moved:.0f} bytes")
     return rec
@@ -2155,7 +2266,7 @@ def speculative_phase(torch, dev, drive, get_config, N: int = 64,
     want = {"flash": Lr * stats["target_calls"]
             + DRAFT_LAYERS * draft_prefills,
             "dense": DRAFT_LAYERS * stats["draft_calls"], "paged": 0,
-            "wkv": 0}
+            "wkv": 0, "scan": 0}
     agree = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
                  N)
     log(f"# speculative bf16 kernel: {DRAFT_LAYERS}-layer draft {stats}, "
@@ -2876,6 +2987,7 @@ def main() -> None:
     from repro_torch.kernels.flash_attention import ops as fl_ops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
@@ -3219,6 +3331,13 @@ def main() -> None:
     wkv_err, rows["wkv"] = wkv_phase(torch, dev, gen, timer)
     log(f"# phase kernels (wkv): {time.perf_counter() - t0:.1f} s")
 
+    # 3f') the selective scan (kernel 5), from a generator of its own
+    t0 = time.perf_counter()
+    gen_scan = torch.Generator(device=dev)
+    gen_scan.manual_seed(30)
+    scan_err, rows["scan"] = scan_phase(torch, dev, gen_scan, timer)
+    log(f"# phase kernels (scan): {time.perf_counter() - t0:.1f} s")
+
     # 3g) hymba-1.5b's heads (25/5 of 64, G = 5): flash without and with
     #     its window of 1024, dense decode over its 1024-row ring
     #     (from a generator of its own, and timed from it: a phase added
@@ -3303,7 +3422,8 @@ def main() -> None:
     counters = {"flash": fl_ops.flash_attention,
                 "paged": dec_ops.decode_attention_paged,
                 "dense": dec_ops.decode_attention,
-                "wkv": wkv_ops.wkv}
+                "wkv": wkv_ops.wkv,
+                "scan": scan_ops.selective_scan}
     by_path = {}
 
     def drive(path, fn):
@@ -3585,8 +3705,12 @@ def main() -> None:
          "source": source.format("rwkv6", "wkv"),
          "replaces": "src/repro/kernels/rwkv6/rwkv6.py:78",
          "launches": total("wkv"), "max_abs_err": wkv_err, **rows["wkv"]},
+        {"name": "selective_scan", "route": "cuda",
+         "source": source.format("selective_scan", "selective_scan"),
+         "replaces": None,      # the JAX package's scan is XLA's
+         "launches": total("scan"), "max_row_err": scan_err, **rows["scan"]},
     ]
-    for k, key in zip(kernels, ("flash", "paged", "dense", "wkv")):
+    for k, key in zip(kernels, ("flash", "paged", "dense", "wkv", "scan")):
         k["launches_by_path"] = {path: n[key] for path, n in by_path.items()}
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -7,32 +7,37 @@ The linear time-varying recurrence
     h_t = exp(dt_t * A) h_{t-1} + dt_t * B_t x_t,    y_t = C_t h_t + D x_t
 
 with input-dependent (dt, B, C) and a single shared dt channel per
-position, as in the reference. ``ssm_apply`` runs a prompt in chunks of
-256 positions (zero-padded to whole chunks: a pad position has dt = 0,
-so a = 1 and b = 0 and the state passes through it unchanged), each
-chunk by a log-depth scan over its positions; ``ssm_step`` runs one
-token. The JAX package evaluates the chunk with XLA's
-``associative_scan`` and has no Pallas kernel for it, so the port keeps
-it in plain PyTorch: a Hillis-Steele doubling scan, log2(256) = 8 steps
-of whole-chunk tensor ops, not a launch per token.
+position, as in the reference. ``ssm_apply`` runs a prompt through
+``_prompt_scan``; ``ssm_step`` runs one token. Under ``impl="kernel"`` on
+the card a prompt's scan is the port's selective-scan kernel
+(``kernels/selective_scan``), one launch a layer: the JAX package
+evaluates it with XLA's ``associative_scan`` and has no Pallas kernel for
+it. Its plain version, and the path of ``impl="plain"`` and of the
+training forward (no kernel has a backward), is ``_scan``: the prompt in
+chunks of 256 positions (zero-padded to whole chunks: a pad position has
+dt = 0, so a = 1 and b = 0 and the state passes through it unchanged),
+each chunk by a Hillis-Steele doubling scan, log2(256) = 8 steps of
+whole-chunk tensor ops.
 
 The state ``{"h": [B,di,ds] fp32, "conv": [B,K-1,di]}`` comes back as new
 tensors; the model copies it into its cache rows. Under a device mesh
 (``parallel.sharding.use_mesh``) a prompt's convolution and scan run on
-each rank's batch and channels.
+each rank's batch and channels (the kernel on each rank's local tensors).
 
 Jamba's Mamba-1 mixer (the JAX package has none; ``JambaMambaMixer`` of
 AI21's Jamba) runs the same recurrence with a dt of its own per channel:
 ``x_proj`` gives (dt [dt_rank], B, C), each through an RMSNorm of its own,
 and delta = softplus(``dt_proj`` dt + ``dt_bias``) [di]; its depthwise
 convolution has a bias; no projection has one. Its prompt runs through
-the same chunked scan and its token through the same one-position step
-as hymba's, in fp32; its convolution sums in fp32. Under a
-``torch.profiler`` session the chunked scan is the span
+the same scan (the kernel reads its delta per channel, hymba's with
+channel stride 0) and its token through the same one-position step as
+hymba's, in fp32; its convolution sums in fp32. Under a
+``torch.profiler`` session a prompt's scan, either version, is the span
 ``repro_torch.ssm.scan`` (``serving.tracing.span``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
@@ -40,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import linear, rms_norm
 from repro_torch.parallel.sharding import constrain, current_mesh, shard_map
@@ -210,6 +216,18 @@ def _scan(xf, B_ssm, C_ssm, delta, A, h):
         return torch.cat(ys, dim=1)[:, :S], h
 
 
+def _prompt_scan(xf, B_ssm, C_ssm, delta, A, h, impl: str):
+    """A prompt's recurrence, ``_scan``'s contract: under ``impl="kernel"``
+    on the card the selective-scan kernel, otherwise ``_scan`` (which the
+    kernel's wrapper runs on a CPU tensor too). The kernel takes dense
+    rows: in an fp32 hymba, B and C are views of the projection."""
+    if impl != "kernel" or not xf.is_cuda:
+        return _scan(xf, B_ssm, C_ssm, delta, A, h)
+    with span("repro_torch.ssm.scan"):
+        return selective_scan(*(t.contiguous() for t in (xf, B_ssm, C_ssm,
+                                                          delta, A, h)))
+
+
 def _recur(h, delta, A, xf, B_ssm, C_ssm):
     """One position of the recurrence: h [B,di,ds], delta [B,1] (one
     channel shared) or [B,di], A [di,ds], xf [B,di], B/C [B,ds]. Returns
@@ -235,11 +253,12 @@ def _in_proj(params, x):
     return constrain(xs, *_CH), constrain(z, *_CH)
 
 
-def ssm_apply(params, x, state, cfg: ModelConfig
+def ssm_apply(params, x, state, cfg: ModelConfig, impl: str = "kernel"
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [B,S,D] -> (y [B,S,D], new state) from ``state``. Under a mesh
-    the convolution and the scan run on each rank's batch and channels
-    (``shard_map``): both are per channel."""
+    """x: [B,S,D] -> (y [B,S,D], new state) from ``state``; ``impl`` picks
+    the scan (``_prompt_scan``). Under a mesh the convolution and the scan
+    run on each rank's batch and channels (``shard_map``): both are per
+    channel."""
     ds = cfg.ssm_state
     dt_ = x.dtype
     xs, z = _in_proj(params, x)                               # [B,S,di]
@@ -250,7 +269,8 @@ def ssm_apply(params, x, state, cfg: ModelConfig
     B_ssm, C_ssm, delta = _project(params, xs, ds)
     A = -torch.exp(params["A_log"])                           # [di,ds]
     xf = xs.to(f32)
-    y, h = shard_map(_scan, (xf, B_ssm, C_ssm, delta, A, state["h"]),
+    y, h = shard_map(functools.partial(_prompt_scan, impl=impl),
+                     (xf, B_ssm, C_ssm, delta, A, state["h"]),
                      (_CH, _ROW, _ROW, ("dp", None), ("tp", None),
                       ("dp", "tp", None)), lambda pl: (pl[0], pl[5]))
     y = y + xf * params["D_skip"]
@@ -299,10 +319,11 @@ def _project_mamba(params, xs, cfg: ModelConfig):
     return B_ssm, C_ssm, delta
 
 
-def mamba_apply(params, x, state, cfg: ModelConfig
+def mamba_apply(params, x, state, cfg: ModelConfig, impl: str = "kernel"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Jamba's Mamba-1 mixer over a prompt from ``state``: x [B,S,D] (the
-    layer's normed input) -> (y [B,S,D], the new state)."""
+    layer's normed input) -> (y [B,S,D], the new state); ``impl`` picks
+    the scan (``_prompt_scan``)."""
     dt_ = x.dtype
     xs, z = linear(x, params["in_proj"]).chunk(2, dim=-1)     # [B,S,di]
     xs, conv_state = _causal_conv(xs.to(f32), params["conv_w"],
@@ -310,8 +331,8 @@ def mamba_apply(params, x, state, cfg: ModelConfig
     xs = F.silu(xs).to(dt_)
     B_ssm, C_ssm, delta = _project_mamba(params, xs, cfg)
     xf = xs.to(f32)
-    y, h = _scan(xf, B_ssm, C_ssm, delta, -torch.exp(params["A_log"]),
-                 state["h"])
+    y, h = _prompt_scan(xf, B_ssm, C_ssm, delta, -torch.exp(params["A_log"]),
+                        state["h"], impl)
     y = (y + xf * params["D_skip"]) * F.silu(z.to(f32))
     return linear(y.to(dt_), params["out_proj"]), {
         "h": h, "conv": conv_state.to(state["conv"].dtype)}

@@ -15,7 +15,10 @@ versions on any device. The serving engine picks ``"kernel"`` on CUDA.
 whole prompt's attention (``attn_full``) the blocked online softmax
 (``layers.causal_attention_xla``, banded under a sliding window) in place
 of the kernel's plain version and its whole score tensor. The training
-forward and the dry run run it.
+forward and the dry run run it. A prompt's SSM scan (the hybrid and jamba
+families, ``ssm._prompt_scan``) follows ``impl`` too: ``"kernel"`` is the
+selective-scan kernel, one launch a layer; a decode step's one position
+is plain PyTorch whatever ``impl``.
 
 Two KV layouts, as in the reference:
 
@@ -761,14 +764,18 @@ def _mamba_layer(p) -> bool:
     return "ssm" in p and "wq" not in p
 
 
-def _mamba_mix(p, x, cfg: ModelConfig, state, step: bool):
+def _mamba_mix(p, x, cfg: ModelConfig, state, step: bool,
+               impl: str = "kernel"):
     """A Mamba-1 layer's mixer with its residual, from ``state``: its norm,
-    ``ssm.mamba_apply`` over a prompt (or ``mamba_step`` over one token)
-    and the add. Returns (x, the new state)."""
+    ``ssm.mamba_apply`` over a prompt (its scan by ``impl``) or
+    ``mamba_step`` over one token, and the add. Returns (x, the new
+    state)."""
     with span("repro_torch.model.ssm"):
         xn = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
-        fn = ssm.mamba_step if step else ssm.mamba_apply
-        y, state = fn(p["ssm"], xn, state, cfg)
+        if step:
+            y, state = ssm.mamba_step(p["ssm"], xn, state, cfg)
+        else:
+            y, state = ssm.mamba_apply(p["ssm"], xn, state, cfg, impl=impl)
         return x + y, state
 
 
@@ -798,7 +805,7 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
     layer's entry is its SSM state alone."""
     if _mamba_layer(p):
         x, state = _mamba_mix(p, x, cfg, ssm.init_ssm_state(
-            cfg, x.shape[0], device=x.device), step=False)
+            cfg, x.shape[0], device=x.device), step=False, impl=impl)
         return _ffn(p, x, cfg), {"ssm_h": state["h"], "conv": state["conv"]}
     with span("repro_torch.model.mixer"):
         if cfg.block == "rwkv":
@@ -813,7 +820,8 @@ def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
         if cfg.block == "hybrid":
             ssm_out, state = ssm.ssm_apply(
                 p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
-                                                 device=x.device), cfg)
+                                                 device=x.device), cfg,
+                impl=impl)
             attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
             if cfg.sliding_window:  # (the reference's placement needs W)
                 entry = {kk: _ring(t, cfg.sliding_window)
@@ -1276,7 +1284,8 @@ def _layer_train(p, x, cfg: ModelConfig):
     if cfg.block == "hybrid":
         ssm_out, _ = ssm.ssm_apply(
             p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
-                                             device=x.device), cfg)
+                                             device=x.device), cfg,
+            impl="plain")
         y = _hybrid_mix(p, y, ssm_out, cfg)
     x, aux = _ffn_aux(p, x + y, cfg)
     return x, _pad_aux(aux, x.device)
