@@ -2126,7 +2126,7 @@ def kvquant_model_phase(torch, dev, gen, get_config, B: int = 4,
             toks = logits[2][:, :cfg.vocab_size].argmax(-1)
         same_layer0(f"after {steps} decode steps", caches[0], caches[1])
     nbytes = {name: sum(c[k].numel() * c[k].element_size()
-                        for k in T._cache_keys(c_cfg))
+                        for k in T.cache_stacks(c_cfg))
               for name, c, c_cfg in (("int8", caches[0], cfg),
                                      ("fp32", caches[2], runs[2][1]))}
     torch.cuda.synchronize()

@@ -20,14 +20,14 @@ decode piggybacked between chunks (``ChunkedPiggybackScheduler``) and the
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
       --requests 16 --isl 512 --osl 64 --slots 8
 
-``--arch rwkv6-1.6b`` (attention-free) and ``--arch hymba-1.5b`` (hybrid:
-sliding-window attention beside a selective SSM) serve disaggregated
-only on the torch backend: the prefill engine hands its O(1) recurrent
-state, or hymba's 1024-row KV ring and SSM state, to a dense decode
-engine. Their prompts are never chunked, so there ``--mode coloc`` and
-``--scheduler prefix-affinity`` (both chunked prefill) are refused at
-start-up, where the reference fails inside its chunked prefill; the sim
-backend serves both, as the reference's does.
+A model whose prompts are never chunked (``transformer.supports_chunked``:
+``--arch rwkv6-1.6b``, attention-free, and ``--arch hymba-1.5b``, whose
+sliding-window attention sits beside a selective SSM) serves
+disaggregated only on the torch backend, its O(1) state or hymba's
+1024-row KV ring and SSM state handed to a dense decode engine:
+``--mode coloc`` and ``--scheduler prefix-affinity`` (chunked prefill)
+are refused at start-up, where the reference fails inside its chunked
+prefill; the sim backend serves both, as the reference's does.
 
 The torch backend also refuses, at start-up and before any parameter is
 allocated, the full-size ``kimi-k2-1t-a32b`` and ``mistral-large-123b``,
@@ -355,7 +355,7 @@ def torch_refusal(cfg, args) -> Optional[str]:
     checked at start-up, before any parameter is allocated. The sim
     backend takes every registered configuration, full size or smoke."""
     from repro_torch.core.hardware import GPU_H100
-    from repro_torch.models.transformer import unported
+    from repro_torch.models.transformer import supports_chunked, unported
     why = unported(cfg)
     if why is not None:
         return why
@@ -368,8 +368,8 @@ def torch_refusal(cfg, args) -> Optional[str]:
                 "sharding on the production meshes, and serving installs "
                 "no mesh, as the reference's does (--smoke serves the "
                 "smoke configuration, --backend sim the full one)")
-    if cfg.block != "attn" and (args.mode == "coloc"
-                                or args.scheduler == "prefix-affinity"):
+    if not supports_chunked(cfg) and (args.mode == "coloc"
+                                      or args.scheduler == "prefix-affinity"):
         return (f"{cfg.block} prompts are never chunked, so --mode coloc "
                 "and --scheduler prefix-affinity (chunked prefill) do not "
                 "apply; use --mode disagg (or --backend sim)")

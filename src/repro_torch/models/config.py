@@ -141,12 +141,19 @@ class ModelConfig:
     ssm_dt_rank: dataclasses.InitVar[int] = 0  # Mamba-1's dt projection rank
     ssm_conv_bias: dataclasses.InitVar[bool] = False
 
+    def mixer(self, i: int) -> str:
+        """Layer i's kind (``transformer.MIXERS``): the block's, but a
+        jamba model's ``"attn"`` in its pattern and ``"mamba"`` else."""
+        if self.block != "jamba":
+            return self.block
+        if i % self.attn_layer_period == self.attn_layer_offset:
+            return "attn"
+        return "mamba"
+
     def attends(self, i: int) -> bool:
         """Layer i has attention: every layer of the attn and hybrid
         blocks, the pattern's layers of a jamba model, none of RWKV's."""
-        if self.block == "rwkv":
-            return False
-        return i % self.attn_layer_period == self.attn_layer_offset
+        return self.mixer(i) in ("attn", "hybrid")
 
     def has_experts(self, i: int) -> bool:
         """Layer i's FFN is the MoE FFN."""
@@ -160,10 +167,8 @@ class ModelConfig:
     @property
     def mamba_layer_ids(self) -> Tuple[int, ...]:
         """A jamba model's Mamba-1 layers (none in any other block)."""
-        if self.block != "jamba":
-            return ()
         return tuple(i for i in range(self.num_layers)
-                     if not self.attends(i))
+                     if self.mixer(i) == "mamba")
 
     @property
     def dh(self) -> int:

@@ -1,6 +1,7 @@
 """The decoder of ``repro.models.transformer`` in PyTorch: the dense
-attention family, MoE, the attention-free RWKV-6 family and the hybrid
-family, with llava's vision frontend and the training loss.
+attention family, MoE, the attention-free RWKV-6 family, the hybrid
+family and the jamba family, with llava's vision frontend and the
+training loss.
 
 Parameters keep the reference's names and layouts (``wq`` [D,Hp,dh],
 ``wo`` [Hp,dh,D], ...), with ``params["blocks"]`` a list of per-layer
@@ -34,39 +35,41 @@ Two KV layouts, as in the reference:
 Both layouts are updated in place where the reference's jit returns new
 arrays (or donates them).
 
-The RWKV-6 family (``cfg.block == "rwkv"``, ``models/rwkv6.py``) keeps no
-KV: its dense "cache" is the recurrent state ``{"s": [L, B, H, N, N] fp32,
-"tm_x", "cm_x": [L, B, D], "pos": [B]}``, O(1) per request, so it has no
-capacity and no paged layout, and its prefill is never chunked. Every WKV
-runs through the WKV kernel under ``impl="kernel"``.
+**One table of layer kinds.** Layer i's kind is ``ModelConfig.mixer(i)``
+and ``MIXERS`` holds all that depends on it: its span, its pre-norm, the
+K/V and recurrent state it keeps per slot, its mixer (a prompt from zero
+state, or one token against its state's views) and the layouts and paths
+it takes (``supports_paged``, ``supports_chunked``, dense, training).
+Every path runs one layer body, ``_layer``: the mixer with its residual,
+then the FFN (``_ffn_aux``: the SwiGLU, or the reference's MoE,
+``models/moe.py``, whose metrics the serving paths drop, as the
+reference's do). The paths differ only in how the layer attends (a whole
+prompt, a dense row, a chunk, the paged pool through a block table) and
+the state they hand it, each entry stacked over the layers that keep it
+(``cache_stacks``). The kinds:
 
-The MoE family (``cfg.moe`` set, e.g. granite-moe-1b-a400m) is the attention
-family with every FFN the reference's capacity-based MoE
-(``models/moe.py``); attention, both KV layouts and the kernels are the
-same. The serving paths drop the MoE metrics, as the reference's do.
-
-The hybrid family (``cfg.block == "hybrid"``, e.g. hymba-1.5b) runs an
-attention branch and a selective-SSM branch (``models/ssm.py``) side by
-side on the same normed input and averages their normed outputs. With a
-sliding window W its attention is banded (the flash kernel's ``window``)
-and its dense KV cache is a ring of C = W rows, token ``pos`` in slot
-``pos % W``; beside it each layer keeps the SSM state ``ssm_h`` [B,di,ds]
-fp32 and ``conv`` [B,K-1,di]. What a prefill hands over is that fixed-size
-ring and state, whatever the prompt's length. Like RWKV it has no paged
-layout and its prompts are never chunked.
-
-The jamba family (``cfg.block == "jamba"``, AI21's Jamba) interleaves
-two mixers and two FFNs by layer (``ModelConfig.attends``,
-``has_experts``): attention without position encoding where ``cfg.rope``
-is False, in the layers ``i % attn_layer_period == attn_layer_offset``,
-and Jamba's Mamba-1 mixer (``ssm.mamba_apply`` / ``mamba_step``) in the
-others; the MoE FFN in the expert layers, a dense SwiGLU in the rest. It
-serves on the paged layout only: the block pool and the block tables
-``[La, slots, nb]`` cover its La attention layers, and beside them the
-pool dict holds each slot's SSM state, ``ssm_h`` [Lm, slots, di, ds] fp32
-and ``conv`` [Lm, slots, K-1, di] over its Lm Mamba layers
-(``init_slot_state``), updated in place by every decode step. A prefill
-hands over the prompt's KV blocks and that state. Its prompts run whole.
+- ``"attn"`` (``block="attn"``), the only one that takes chunked prefill:
+  an RWKV, hybrid or Mamba-1 prompt runs whole (its recurrence is already
+  chunked inside its scan).
+- ``"rwkv"`` (``block="rwkv"``, ``models/rwkv6.py``): the RWKV-6 block.
+  Its dense "cache" is the recurrent state alone, O(1) per request (no
+  capacity, nothing to page). Every WKV runs through the WKV kernel under
+  ``impl="kernel"``.
+- ``"hybrid"`` (``block="hybrid"``, hymba-1.5b): attention and a selective
+  SSM (``models/ssm.py``) side by side on the same normed input, their
+  normed outputs averaged. With a sliding window W its attention is
+  banded (the flash kernel's ``window``) and its K/V a ring of W rows,
+  token ``pos`` in row ``pos % W``: a prefill hands over that ring and
+  the SSM state, whatever the prompt's length, and there is nothing to
+  page.
+- ``"mamba"``: Jamba's Mamba-1 mixer (``ssm.mamba_apply`` /
+  ``mamba_step``). A ``block="jamba"`` model (AI21's Jamba) attends,
+  without position encoding where ``cfg.rope`` is False, in the layers
+  ``i % attn_layer_period == attn_layer_offset`` and runs Mamba-1 in the
+  others, the MoE FFN in its expert layers (``has_experts``). It serves
+  on the paged layout only, its pool and block tables over its attention
+  layers and each slot's SSM state beside them (``init_slot_state``),
+  and does not train.
 
 kv-quant (``cfg.kv_quant``) stores the dense cache as int8 with a bf16
 scale per token and KV head (``k_scale``/``v_scale`` [L,B,C,Hkvp]), as
@@ -98,14 +101,14 @@ reference either (its training attention is XLA's blocked online softmax,
 A sliding window on the attn block comes with a later slice
 (``unported`` says so).
 
-Under a ``torch.profiler`` session every serving path's layer is two
-spans on the profiler's clock (``serving.tracing.span``):
-``repro_torch.model.mixer`` (the attention norm through the residual add,
-or the RWKV block; ``repro_torch.model.ssm`` for a jamba Mamba-1 layer's
-norm through its residual add) and ``repro_torch.model.ffn`` or ``.moe``
-(``_ffn_aux``: its norm through its residual add), with
-``repro_torch.model.logits`` around the head. With no profiler running a
-span is one check.
+Under a ``torch.profiler`` session every layer is two spans on the
+profiler's clock (``serving.tracing.span``), opened by ``_layer``: its
+mixer's (``repro_torch.model.mixer``: the attention norm through the
+residual add, or the RWKV block; ``repro_torch.model.ssm`` for a Mamba-1
+layer's norm through its residual add and the step's state write) and
+``repro_torch.model.ffn`` or ``.moe`` (``_ffn_aux``: its norm through its
+residual add), with ``repro_torch.model.logits`` around the serving
+paths' head. With no profiler running a span is one check.
 
 ``decode_step_paged`` takes an engine's CUDA graphs (``graphs=``,
 ``serving/graphs.py``): on the card under ``impl="kernel"`` it replays
@@ -116,7 +119,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, List, Optional
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 import torch.distributed._functional_collectives as funcol
@@ -180,16 +184,17 @@ def _check_family(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: {why}")
 
 
-def _check_attn(cfg: ModelConfig, what: str, blocks=("attn",)) -> None:
-    """Chunked prefill, the verify pass and the paged layout are for the
-    attention family with a bf16 cache, as in the reference: an RWKV or
-    hybrid prompt runs whole (its recurrence is already chunked inside its
-    scan), a recurrent state or a fixed-size ring has nothing to page, and
-    the int8 cache is written only by a whole prefill and a decode
-    step. ``blocks``: the families ``what`` takes (the paged layout also
-    the jamba family, whose prompts run whole too)."""
+def _takes(cfg: ModelConfig, path: str) -> bool:
+    """Every layer's mixer takes ``path`` (``_Mixer.paths``)."""
+    return all(cfg.mixer(i) in MIXERS and path in MIXERS[cfg.mixer(i)].paths
+               for i in range(cfg.num_layers))
+
+
+def _check_takes(cfg: ModelConfig, path: str, what: str) -> None:
+    """``what`` needs every mixer to take ``path`` and a bf16 cache (the
+    reference writes int8 only in whole prefills and decode steps)."""
     _check_family(cfg)
-    if cfg.block not in blocks:
+    if not _takes(cfg, path):
         raise ValueError(f"{cfg.name}: {what} is for the attention family "
                          f"only, not {cfg.block} blocks")
     if cfg.kv_quant:
@@ -273,10 +278,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
 
     blocks: List[Dict[str, torch.Tensor]] = []
     for i in range(cfg.num_layers):
-        if cfg.block == "rwkv":
+        kind = cfg.mixer(i)
+        if kind == "rwkv":
             blocks.append(rwkv6.init_rwkv_block(gen, cfg, device=device))
             continue
-        if cfg.block == "jamba" and not cfg.attends(i):
+        if kind == "mamba":
             p = {"ssm_norm": ones(D),
                  "ssm": ssm.init_mamba(gen, cfg, device=device),
                  "ffn_norm": ones(D)}
@@ -300,7 +306,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device) -> Dict[str, Any]:
                 zeros(Hkv, dh)
         if cfg.qk_norm and "wq" in p:
             p["q_norm"], p["k_norm"] = ones(dh), ones(dh)
-        if cfg.block == "hybrid":
+        if kind == "hybrid":
             p["ssm"] = ssm.init_ssm(gen, cfg, device=device)
             p["attn_out_norm"], p["ssm_out_norm"] = ones(D), ones(D)
         blocks.append(p)
@@ -701,39 +707,48 @@ def _chunk_attend(q, kr, vr, mask, cfg: ModelConfig):
                         vr.float())
 
 
+def _attend_chunk(p, x, cfg: ModelConfig, q, off: int, kv_rows,
+                  impl: str):
+    """Queries q [B,Sq,Hp,dh] at positions [off, off+Sq) against K and V
+    [B,n,Hkvp,dh] of the first n cache positions, ``kv_rows(n)`` (all for
+    None): the flash kernel on the first off+Sq at ``q_offset=off``, its
+    causal mask the reference's ``kpos <= qpos``, under ``"kernel"``;
+    the reference's mask-based core over all of them otherwise."""
+    Sq = q.shape[1]
+    if impl == "kernel":
+        _kernel_ok(cfg)
+        k, v = kv_rows(off + Sq)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=True, q_offset=off)
+    else:
+        k, v = kv_rows(None)
+        hmap = _head_map(cfg, x.device)
+        qpos = off + torch.arange(Sq, device=x.device)[:, None]
+        mask = torch.arange(k.shape[1], device=x.device)[None, :] <= qpos
+        o = _chunk_attend(q, L.expand_kv(k, hmap), L.expand_kv(v, hmap), mask,
+                          cfg)
+    return _attn_out(p, o.to(x.dtype), cfg)
+
+
 def attn_chunk(p, x, cfg: ModelConfig, k_cache, v_cache, kv_offset: int,
                impl: str = "kernel"):
     """Prefill chunk: x [B,Sq,D] (normed) is tokens [off, off+Sq); the
-    caches [B,C,Hkvp,dh] hold [0, off) and take this chunk's K/V in place.
-    ``impl="kernel"`` runs the flash kernel on the first off+Sq cache rows
-    with ``q_offset=off`` (the mask ``kpos <= qpos`` the reference applies
-    over all C columns is the kernel's causal mask); ``"plain"`` mirrors
-    the reference's mask-based core."""
+    caches [B,C,Hkvp,dh] hold [0, off) and take this chunk's K/V in place;
+    then ``_attend_chunk`` over them."""
     _check_impl(impl)
-    B, Sq, _ = x.shape
+    Sq = x.shape[1]
     off = int(kv_offset)
-    positions = off + torch.arange(Sq, device=x.device)[None, :]
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _qkv(p, x, cfg, off + torch.arange(Sq, device=x.device)[None])
     k_cache[:, off:off + Sq] = k.to(k_cache.dtype)
     v_cache[:, off:off + Sq] = v.to(v_cache.dtype)
-    if impl == "kernel":
-        _kernel_ok(cfg)
-        o = flash_attention(q.contiguous(),
-                            k_cache[:, :off + Sq].contiguous(),
-                            v_cache[:, :off + Sq].contiguous(),
-                            causal=True, q_offset=off)
-    else:
-        hmap = _head_map(cfg, x.device)
-        C = k_cache.shape[1]
-        qpos = positions[0][:, None]
-        mask = torch.arange(C, device=x.device)[None, :] <= qpos
-        o = _chunk_attend(q, L.expand_kv(k_cache, hmap),
-                          L.expand_kv(v_cache, hmap), mask, cfg)
-    return _attn_out(p, o.to(x.dtype), cfg), (k_cache, v_cache)
+    def rows(n):
+        return k_cache[:, :n], v_cache[:, :n]
+
+    return _attend_chunk(p, x, cfg, q, off, rows, impl), (k_cache, v_cache)
 
 
 # ---------------------------------------------------------------------------
-# FFN and layer body
+# FFN, the table of mixers and the layer body
 
 
 def _ffn_aux(p, x, cfg: ModelConfig):
@@ -752,40 +767,6 @@ def _ffn_aux(p, x, cfg: ModelConfig):
         return x + L.swiglu(xn, p["wi_gate"], p["wi_up"], p["wo_ffn"]), {}
 
 
-def _ffn(p, x, cfg: ModelConfig):
-    """``_ffn_aux`` with the MoE metrics dropped, as the reference's
-    serving paths drop them."""
-    return _ffn_aux(p, x, cfg)[0]
-
-
-def _mamba_layer(p) -> bool:
-    """A jamba layer whose mixer is Mamba-1: its parameters hold an SSM and
-    no attention (a hybrid layer's hold both)."""
-    return "ssm" in p and "wq" not in p
-
-
-def _mamba_mix(p, x, cfg: ModelConfig, state, step: bool,
-               impl: str = "kernel"):
-    """A Mamba-1 layer's mixer with its residual, from ``state``: its norm,
-    ``ssm.mamba_apply`` over a prompt (its scan by ``impl``) or
-    ``mamba_step`` over one token, and the add. Returns (x, the new
-    state)."""
-    with span("repro_torch.model.ssm"):
-        xn = L.rms_norm(x, p["ssm_norm"], cfg.norm_eps)
-        if step:
-            y, state = ssm.mamba_step(p["ssm"], xn, state, cfg)
-        else:
-            y, state = ssm.mamba_apply(p["ssm"], xn, state, cfg, impl=impl)
-        return x + y, state
-
-
-def _hybrid_mix(p, attn_out, ssm_out, cfg: ModelConfig):
-    """The hybrid block's branch merge: the mean of the two normed
-    branches."""
-    return 0.5 * (L.rms_norm(attn_out, p["attn_out_norm"], cfg.norm_eps)
-                  + L.rms_norm(ssm_out, p["ssm_out_norm"], cfg.norm_eps))
-
-
 def _ring(t, W: int):
     """A prompt's K or V [B,S,Hkvp,dh] -> the W-row ring [B,W,Hkvp,dh]:
     position ``pos`` in slot ``pos % W`` (the last W positions rolled by
@@ -796,39 +777,136 @@ def _ring(t, W: int):
     return torch.cat([t, t.new_zeros((B, W - S) + t.shape[2:])], dim=1)
 
 
-def _layer_prefill(p, x, cfg: ModelConfig, impl: str):
-    """One layer over the prompt; returns (x, cache entry): {"k","v":
-    [B,S,Hkvp,dh]} (int8 with ``k_scale``/``v_scale`` [B,S,Hkvp] under
-    kv-quant: the attention itself ran on the unquantized K/V), an RWKV
-    layer's final state, or a hybrid layer's K/V (the W-row ring under a
-    sliding window) with its SSM state ``ssm_h``/``conv``; a jamba Mamba-1
-    layer's entry is its SSM state alone."""
-    if _mamba_layer(p):
-        x, state = _mamba_mix(p, x, cfg, ssm.init_ssm_state(
-            cfg, x.shape[0], device=x.device), step=False, impl=impl)
-        return _ffn(p, x, cfg), {"ssm_h": state["h"], "conv": state["conv"]}
-    with span("repro_torch.model.mixer"):
-        if cfg.block == "rwkv":
-            state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
-            return rwkv6.rwkv_block(p, x, state, cfg, impl=impl)
-        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, (k, v) = attn_full(p, xn, cfg, impl=impl)
-        entry = {"k": k, "v": v}
-        if cfg.kv_quant:
-            entry["k"], entry["k_scale"] = _kv_quantize(k)
-            entry["v"], entry["v_scale"] = _kv_quantize(v)
-        if cfg.block == "hybrid":
-            ssm_out, state = ssm.ssm_apply(
-                p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
-                                                 device=x.device), cfg,
-                impl=impl)
-            attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
-            if cfg.sliding_window:  # (the reference's placement needs W)
-                entry = {kk: _ring(t, cfg.sliding_window)
-                         for kk, t in entry.items()}
-            entry.update(ssm_h=state["h"], conv=state["conv"])
-        x = x + attn_out
-    return _ffn(p, x, cfg), entry
+def _recur(step, apply, p, xn, cfg: ModelConfig, st, impl: str):
+    """An SSM (``ssm.ssm_*``, ``ssm.mamba_*``): a token from the views in
+    ``st`` or a prompt from zeros. Returns (y, the new state)."""
+    if "ssm_h" in st:
+        y, s = step(p["ssm"], xn, {"h": st["ssm_h"], "conv": st["conv"]},
+                    cfg)
+    else:
+        y, s = apply(p["ssm"], xn, ssm.init_ssm_state(
+            cfg, xn.shape[0], device=xn.device), cfg, impl=impl)
+    return y, {"ssm_h": s["h"], "conv": s["conv"]}
+
+
+def _mix_hybrid(p, xn, cfg: ModelConfig, st, attend, impl: str):
+    """Attention beside the SSM on one normed input: their normed mean."""
+    y = attend(p, xn, cfg, st)
+    s, state = _recur(ssm.ssm_step, ssm.ssm_apply, p, xn, cfg, st, impl)
+    return 0.5 * (L.rms_norm(y, p["attn_out_norm"], cfg.norm_eps)
+                  + L.rms_norm(s, p["ssm_out_norm"], cfg.norm_eps)), state
+
+
+def _mix_rwkv(p, x, cfg: ModelConfig, st, attend, impl: str):
+    """The RWKV-6 block: a token steps ``st``'s views; a prompt runs from 0."""
+    if st:
+        return rwkv6.rwkv_block_step(p, x, st, cfg, impl=impl)[0], {}
+    return rwkv6.rwkv_block(p, x, rwkv6.init_rwkv_state(
+        cfg, x.shape[0], device=x.device), cfg, impl=impl)
+
+
+def _ssm_zeros(cfg: ModelConfig, rows: int, *, device):
+    s = ssm.init_ssm_state(cfg, rows, device=device)
+    return {"ssm_h": s["h"], "conv": s["conv"]}
+
+
+class _Mixer(NamedTuple):
+    """One kind of layer mixer (``ModelConfig.mixer``)."""
+    span: str               # its profiler span, norm through residual
+    norm: Optional[str]     # its pre-norm's key; None: the whole block
+    attends: bool           # it keeps K/V (``_kv_keys``)
+    state: Tuple[str, ...]  # the recurrent state it keeps per slot
+    zeros: Optional[Callable]   # (cfg, rows, *, device) -> it, zero
+    mix: Callable           # (p, xn, cfg, st, attend, impl) -> (y, state)
+    paths: Tuple[str, ...]  # the layouts and paths it takes
+
+
+MIXERS: Dict[str, _Mixer] = {
+    "attn": _Mixer("repro_torch.model.mixer", "attn_norm", True, (), None,
+                   lambda p, xn, cfg, st, attend, impl: (
+                       attend(p, xn, cfg, st), {}),
+                   ("dense", "paged", "chunked", "train")),
+    "rwkv": _Mixer("repro_torch.model.mixer", None, False,
+                   ("s", "tm_x", "cm_x"), rwkv6.init_rwkv_state, _mix_rwkv,
+                   ("dense", "train")),
+    "hybrid": _Mixer("repro_torch.model.mixer", "attn_norm", True,
+                     ("ssm_h", "conv"), _ssm_zeros, _mix_hybrid,
+                     ("dense", "train")),
+    "mamba": _Mixer("repro_torch.model.ssm", "ssm_norm", False,
+                    ("ssm_h", "conv"), _ssm_zeros,
+                    lambda p, xn, cfg, st, attend, impl: _recur(
+                        ssm.mamba_step, ssm.mamba_apply, p, xn, cfg, st,
+                        impl), ("paged",)),
+}
+
+
+def _layer(p, x, cfg: ModelConfig, kind: str, st, attend, impl: str):
+    """The one layer body: ``kind``'s mixer with its residual, then the
+    FFN (none after a whole block). ``st``: views of the layer's state,
+    written in place, or for a prompt none (it runs from zeros, and
+    ``st`` takes the layer's cache entries). Returns (x, MoE metrics)."""
+    m = MIXERS[kind]
+    with span(m.span):
+        if m.norm is None:
+            x, new = m.mix(p, x, cfg, st, attend, impl)
+        else:
+            y, new = m.mix(p, L.rms_norm(x, p[m.norm], cfg.norm_eps), cfg,
+                           st, attend, impl)
+            x = x + y
+        for key, t in new.items():
+            if key in st:
+                st[key].copy_(t)
+            else:
+                st[key] = t
+    if m.norm is None:
+        return x, {}
+    return _ffn_aux(p, x, cfg)
+
+
+def _kv_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    return ("k", "v") + (("k_scale", "v_scale") if cfg.kv_quant else ())
+
+
+def cache_stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """A prefill's or dense cache's entries but ``pos``, each with the
+    number of layers it stacks over: those that keep it."""
+    n: Dict[str, int] = {}
+    for i in range(cfg.num_layers):
+        m = MIXERS[cfg.mixer(i)]
+        for key in (_kv_keys(cfg) if m.attends else ()) + m.state:
+            n[key] = n.get(key, 0) + 1
+    return n
+
+
+def _layer_views(cfg: ModelConfig, params, stacks, kv: Tuple[str, ...]):
+    """Each layer's (params, kind, state views): its rows of the ``kv``
+    stacks (K/V, or a block table) and of its recurrent state's."""
+    a = m = 0
+    for i, p in enumerate(params["blocks"]):
+        kind = cfg.mixer(i)
+        mx, st = MIXERS[kind], {}
+        if mx.attends:
+            st.update((key, stacks[key][a]) for key in kv)
+            a += 1
+        if mx.state:
+            st.update((key, stacks[key][m]) for key in mx.state)
+            m += 1
+        yield p, kind, st
+
+
+def _attend_prompt(p, xn, cfg: ModelConfig, st, impl: str):
+    """A whole prompt's attention; ``st`` takes its K/V [B,S,Hkvp,dh] (a
+    W-row ring under a sliding window; under kv-quant int8 with
+    ``k_scale``/``v_scale`` [B,S,Hkvp], after attending unquantized)."""
+    y, (k, v) = attn_full(p, xn, cfg, impl=impl)
+    new = {"k": k, "v": v}
+    if cfg.kv_quant:
+        new["k"], new["k_scale"] = _kv_quantize(k)
+        new["v"], new["v_scale"] = _kv_quantize(v)
+    if cfg.sliding_window:      # (the reference's placement needs W)
+        new = {key: _ring(t, cfg.sliding_window) for key, t in new.items()}
+    st.update(new)
+    return y
 
 
 def _stacked(t, n: int):
@@ -857,38 +935,50 @@ def _write_layer(buf, i: int, t) -> None:
 def prefill_full(params, cfg: ModelConfig, inputs, *,
                  capacity: Optional[int] = None, impl: str = "kernel"):
     """Single-shot prefill. inputs: {"tokens": [B,S] int} (and a vision
-    configuration's ``patch_embeds``, prepended). Returns (logits
-    [B,Vp] fp32, cache {"k","v": [L,B,C,Hkvp,dh], "pos": [B]}); for RWKV
-    the cache is the state after the prompt, and ``capacity`` is unused;
-    a hybrid cache is S rows wide (W, the ring, under a sliding window) and
-    carries ``ssm_h``/``conv``: as in the reference, only the attention
-    family grows to ``capacity`` (its int8 values and their scales alike
-    under kv-quant). A jamba cache stacks K/V over its attention layers
-    and ``ssm_h``/``conv`` over its Mamba-1 layers."""
+    configuration's ``patch_embeds``, prepended). Returns (logits [B,Vp]
+    fp32, cache): each entry of ``cache_stacks`` over its layers (K/V
+    [La,B,S,Hkvp,dh], the W-row ring under a sliding window; a recurrent
+    state after the prompt) and "pos" [B]. As in the reference, only a
+    model that keeps no recurrent state grows its K/V to ``capacity``."""
     _check_family(cfg)
     x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
-    n, cache, written = len(params["blocks"]), {}, {}
-    for p in params["blocks"]:
-        x, entry = _layer_prefill(p, x, cfg, impl)
-        for key in _cache_keys(cfg):
-            if key not in entry:
-                continue
-            i = written.get(key, 0)
-            if i == 0:
-                cache[key] = _stacked(entry[key], _cache_layers(cfg, key, n))
-            _write_layer(cache[key], i, entry[key])
-            written[key] = i + 1
+    attend = functools.partial(_attend_prompt, impl=impl)
+    stacks = cache_stacks(cfg)
+    cache, written = {}, {}
+    for i, p in enumerate(params["blocks"]):
+        st = {}
+        x, _ = _layer(p, x, cfg, cfg.mixer(i), st, attend, impl)
+        for key, t in st.items():
+            if key not in cache:
+                cache[key], written[key] = _stacked(t, stacks[key]), 0
+            _write_layer(cache[key], written[key], t)
+            written[key] += 1
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x[:, -1])
-    if cfg.block == "attn" and capacity > S:    # grow to the capacity
-        for key in _cache_keys(cfg):
+    if capacity > S and set(stacks) <= set(_kv_keys(cfg)):
+        for key in stacks:                      # grow to the capacity
             c = cache[key]
             pad = c.new_zeros(c.shape[:2] + (capacity - S,) + c.shape[3:])
             cache[key] = torch.cat([c, pad], dim=2)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
     return logits, cache
+
+
+def init_slot_state(cfg: ModelConfig, slots: int, *, device):
+    """Zero recurrent state of ``slots`` slots over the layers that keep it
+    (a jamba model's ``ssm_h`` [Lm, slots, di, ds] fp32 and ``conv`` [Lm,
+    slots, K-1, di], beside its engine's block pool); {} for attention."""
+    out, stacks = {}, cache_stacks(cfg)
+    for i in range(cfg.num_layers):
+        mx = MIXERS[cfg.mixer(i)]
+        if not mx.state or mx.state[0] in out:
+            continue
+        n = stacks[mx.state[0]]
+        out.update((key, t.reshape((n, slots) + t.shape[1:])) for key, t
+                   in mx.zeros(cfg, n * slots, device=device).items())
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
@@ -898,80 +988,31 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device):
     reference's ``init_cache``. A sliding window makes C = W (the ring)
     whatever ``capacity``; kv-quant makes K/V int8 and adds the bf16
     ``k_scale``/``v_scale`` [L,B,C,Hkvp]; a hybrid cache adds the zero SSM
-    state ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]. A jamba
-    model has no dense layout (``init_slot_state``)."""
+    state ``ssm_h`` [L,B,di,ds] fp32 and ``conv`` [L,B,K-1,di]
+    (``init_slot_state``). A jamba model has no dense layout."""
     _check_family(cfg)
-    if cfg.block == "jamba":
-        raise ValueError(f"{cfg.name}: a jamba model serves on the paged "
-                         "layout only")
-    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if cfg.block == "rwkv":
-        state = rwkv6.init_rwkv_state(cfg, cfg.num_layers * batch,
-                                      device=device)
-        cache = {key: t.reshape((cfg.num_layers, batch) + t.shape[1:])
-                 for key, t in state.items()}
-        return {**cache, "pos": pos}
-    C = cfg.sliding_window or capacity
-    shape = (cfg.num_layers, batch, C, cfg.padded_kv_heads, cfg.dh)
-    kv_dt = torch.int8 if cfg.kv_quant else cfg.tdtype
-    cache = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
-             "v": torch.zeros(shape, dtype=kv_dt, device=device)}
-    if cfg.kv_quant:
-        for key in ("k_scale", "v_scale"):
-            cache[key] = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+    if not _takes(cfg, "dense"):
+        raise ValueError(f"{cfg.name}: a {cfg.block} model serves on the "
+                         "paged layout only")
+    cache = {}
+    La = len(cfg.attn_layer_ids)
+    if La:
+        C = cfg.sliding_window or capacity
+        shape = (La, batch, C, cfg.padded_kv_heads, cfg.dh)
+        kv_dt = torch.int8 if cfg.kv_quant else cfg.tdtype
+        for key in _kv_keys(cfg):
+            scale = key.endswith("_scale")
+            cache[key] = torch.zeros(shape[:-1] if scale else shape,
+                                     dtype=torch.bfloat16 if scale else kv_dt,
                                      device=device)
-    if cfg.block == "hybrid":
-        state = ssm.init_ssm_state(cfg, cfg.num_layers * batch,
-                                   device=device)
-        cache.update({key: t.reshape((cfg.num_layers, batch) + t.shape[1:])
-                      for key, t in (("ssm_h", state["h"]),
-                                     ("conv", state["conv"]))})
+    cache.update(init_slot_state(cfg, batch, device=device))
+    pos = torch.zeros((batch,), dtype=torch.int32, device=device)
     return {**cache, "pos": pos}
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, capacity: int):
     """``init_cache``'s tree on the meta device (no storage)."""
     return init_cache(cfg, batch, capacity, device="meta")
-
-
-def _cache_keys(cfg: ModelConfig):
-    """The per-layer entries of a dense cache (all but ``pos``)."""
-    if cfg.block == "rwkv":
-        return ("s", "tm_x", "cm_x")
-    keys = ("k", "v") + (("k_scale", "v_scale") if cfg.kv_quant else ())
-    if cfg.block in ("hybrid", "jamba"):
-        keys += ("ssm_h", "conv")
-    return keys
-
-
-def _cache_layers(cfg: ModelConfig, key: str, n: int) -> int:
-    """The layers a cache entry stacks: all ``n`` of them, but in a jamba
-    model its attention layers (K/V) or its Mamba-1 layers (the state)."""
-    if cfg.block != "jamba":
-        return n
-    return len(cfg.mamba_layer_ids if key in ("ssm_h", "conv")
-               else cfg.attn_layer_ids)
-
-
-def _layer_decode(p, x1, cfg: ModelConfig, entry, pos, impl: str):
-    """One layer of a decode step; ``entry`` is this layer's cache views,
-    written in place."""
-    with span("repro_torch.model.mixer"):
-        if cfg.block == "rwkv":
-            x1, _ = rwkv6.rwkv_block_step(p, x1, entry, cfg, impl=impl)
-            return x1
-        xn = L.rms_norm(x1, p["attn_norm"], cfg.norm_eps)
-        attn_out, _ = attn_decode(p, xn, cfg, entry["k"], entry["v"], pos,
-                                  impl=impl, scales=entry)
-        if cfg.block == "hybrid":
-            ssm_out, state = ssm.ssm_step(
-                p["ssm"], xn, {"h": entry["ssm_h"], "conv": entry["conv"]},
-                cfg)
-            entry["ssm_h"].copy_(state["h"])
-            entry["conv"].copy_(state["conv"])
-            attn_out = _hybrid_mix(p, attn_out, ssm_out, cfg)
-        x1 = x1 + attn_out
-    return _ffn(p, x1, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens,
@@ -985,13 +1026,12 @@ def decode_step(params, cfg: ModelConfig, cache, tokens,
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens[:, None])
     pos = cache["pos"]
-    keys = _cache_keys(cfg)
-    for i, p in enumerate(params["blocks"]):
-        x = _layer_decode(p, x, cfg, {key: cache[key][i] for key in keys},
-                          pos, impl)
+    attend = (lambda p, xn, cfg, st: attn_decode(
+        p, xn, cfg, st["k"], st["v"], pos, impl=impl, scales=st)[0])
+    for p, kind, st in _layer_views(cfg, params, cache, _kv_keys(cfg)):
+        x, _ = _layer(p, x, cfg, kind, st, attend, impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (_logits(params, cfg, x[:, 0]),
-            {**{key: cache[key] for key in keys}, "pos": pos + 1})
+    return _logits(params, cfg, x[:, 0]), {**cache, "pos": pos + 1}
 
 
 def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
@@ -1002,7 +1042,7 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
     ``start`` resume from a cached prefix (tokens[:, :start] already in the
     cache); that cache is written in place. Returns (logits [B,Vp] fp32 at
     the last input position, cache with ``pos`` = the input length)."""
-    _check_attn(cfg, "chunked prefill")
+    _check_takes(cfg, "chunked", "chunked prefill")
     x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     capacity = capacity or S
@@ -1016,13 +1056,10 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
     out = x[:, :0]
     for lo in range(start, S, chunk_size):
         out = x[:, lo:lo + chunk_size]
-        for i, p in enumerate(params["blocks"]):
-            with span("repro_torch.model.mixer"):
-                xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
-                attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i],
-                                         cache["v"][i], lo, impl=impl)
-                out = out + attn_out
-            out = _ffn(p, out, cfg)
+        attend = (lambda p, xn, cfg, st: attn_chunk(
+            p, xn, cfg, st["k"], st["v"], lo, impl=impl)[0])
+        for p, kind, st in _layer_views(cfg, params, cache, ("k", "v")):
+            out, _ = _layer(p, out, cfg, kind, st, attend, impl)
     out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, out[:, -1]), {
         "k": cache["k"], "v": cache["v"],
@@ -1034,12 +1071,16 @@ def prefill_chunked(params, cfg: ModelConfig, inputs, chunk_size: int, *,
 
 
 def supports_paged(cfg: ModelConfig) -> bool:
-    """Paged serving covers the dense-attention family without quantized
-    KV or a sliding window (a ring and a recurrent state have no KV growth
-    to page), and the jamba family (its attention layers' KV paged, its
-    Mamba-1 state per slot beside the pool)."""
-    return (cfg.block in ("attn", "jamba") and not cfg.kv_quant
+    """Paged serving: every layer's mixer takes the paged layout, with a
+    bf16 cache and no sliding window (a ring has no KV growth to page)."""
+    return (_takes(cfg, "paged") and not cfg.kv_quant
             and not cfg.sliding_window)
+
+
+def supports_chunked(cfg: ModelConfig) -> bool:
+    """A prompt may run in chunks, resumed from a cached prefix: the
+    attention family with a bf16 cache."""
+    return _takes(cfg, "chunked") and not cfg.kv_quant
 
 
 def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
@@ -1048,20 +1089,6 @@ def init_block_pool(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     shape = (num_blocks, block_size, cfg.padded_kv_heads, cfg.dh)
     return {"k": torch.zeros(shape, dtype=cfg.tdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.tdtype, device=device)}
-
-
-def init_slot_state(cfg: ModelConfig, slots: int, *, device):
-    """A jamba engine's zero SSM state for each of its ``slots``, held in
-    its pool dict beside the blocks: ``ssm_h`` [Lm, slots, di, ds] fp32 and
-    ``conv`` [Lm, slots, K-1, di] over the Lm Mamba-1 layers (none in any
-    other family)."""
-    Lm = len(cfg.mamba_layer_ids)
-    if not Lm:
-        return {}
-    state = ssm.init_ssm_state(cfg, Lm * slots, device=device)
-    return {"ssm_h": state["h"].reshape((Lm, slots) + state["h"].shape[1:]),
-            "conv": state["conv"].reshape((Lm, slots)
-                                          + state["conv"].shape[1:])}
 
 
 def gather_blocks(pool, ids):
@@ -1112,6 +1139,30 @@ def attn_decode_paged(p, x1, cfg: ModelConfig, pool_k, pool_v, tbl, pos,
     return _attn_out(p, o.to(x1.dtype), cfg), (pool_k, pool_v)
 
 
+def attn_chunk_paged(p, x, cfg: ModelConfig, pool_k, pool_v, tbl,
+                     kv_offset: int, impl: str = "kernel"):
+    """``attn_chunk`` for one request's blocks, ``tbl`` [nb] int32: x
+    [1,Sq,D] is whole blocks; ``_attend_chunk`` over the live blocks
+    gathered (the reference's ``"pallas"`` branch) or the whole table
+    (its ``"xla"`` branch)."""
+    _check_impl(impl)
+    Sq = x.shape[1]
+    off = int(kv_offset)
+    Bs = pool_k.shape[1]
+    q, k, v = _qkv(p, x, cfg, off + torch.arange(Sq, device=x.device)[None])
+    wids = tbl[off // Bs:(off + Sq) // Bs].long()
+    for pool, t in ((pool_k, k), (pool_v, v)):
+        pool.index_copy_(0, wids, t[0].reshape((-1,) + pool.shape[1:])
+                         .to(pool.dtype))
+
+    def rows(n):
+        ids = tbl[:n // Bs] if n else tbl
+        return (pool_k[ids.long()].reshape((1, -1) + pool_k.shape[2:]),
+                pool_v[ids.long()].reshape((1, -1) + pool_v.shape[2:]))
+
+    return _attend_chunk(p, x, cfg, q, off, rows, impl), (pool_k, pool_v)
+
+
 def decode_step_paged(params, cfg: ModelConfig, pool, tables, pos, tokens,
                       impl: str = "kernel", *, graphs=None):
     """Batched decode step on the paged layout. tables: [L,B,nb] int32 (a
@@ -1143,25 +1194,13 @@ def _decode_step_paged_eager(params, cfg: ModelConfig, pool, tables, pos,
                              tokens, impl: str):
     """``decode_step_paged``'s body, every op launched as it is reached: a
     jamba model's Mamba-1 layers step their slots' state in place."""
-    _check_attn(cfg, "the paged layout", ("attn", "jamba"))
+    _check_takes(cfg, "paged", "the paged layout")
     x = embed_tokens(params, cfg, tokens[:, None])
-    pk, pv = pool["k"], pool["v"]
-    a = m = 0
-    for p in params["blocks"]:
-        if _mamba_layer(p):
-            state = {"h": pool["ssm_h"][m], "conv": pool["conv"][m]}
-            x, new = _mamba_mix(p, x, cfg, state, step=True)
-            state["h"].copy_(new["h"])
-            state["conv"].copy_(new["conv"])
-            m += 1
-        else:
-            with span("repro_torch.model.mixer"):
-                xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-                attn_out, _ = attn_decode_paged(p, xn, cfg, pk, pv,
-                                                tables[a], pos, impl=impl)
-                x = x + attn_out
-            a += 1
-        x = _ffn(p, x, cfg)
+    attend = (lambda p, xn, cfg, st: attn_decode_paged(
+        p, xn, cfg, pool["k"], pool["v"], st["table"], pos, impl=impl)[0])
+    for p, kind, st in _layer_views(cfg, params, {**pool, "table": tables},
+                                    ("table",)):
+        x, _ = _layer(p, x, cfg, kind, st, attend, impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, 0]), pool, pos + 1
 
@@ -1173,19 +1212,13 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
     dense B=1 cache). B=1; tables: [L, nb] covering the prompt;
     ``chunk_size % block_size == 0`` so every chunk lands on block
     boundaries. ``start`` resumes after a prefix-cache hit (those blocks
-    already hold the prefix KV). Each chunk writes its K/V into its blocks
-    (in place), gathers the table window and attends: ``impl="kernel"``
-    through the flash kernel on the first lo+chunk gathered rows with
-    ``q_offset=lo`` and un-expanded GQA (the reference's ``"pallas"``
-    branch), ``"plain"`` through the mask-based core over the whole window
-    (its ``"xla"`` branch). Returns (logits [1,Vp] fp32, pool)."""
-    _check_attn(cfg, "chunked prefill")
+    already hold the prefix KV). Each layer of each chunk is one
+    ``attn_chunk_paged``. Returns (logits [1,Vp] fp32, pool)."""
+    _check_takes(cfg, "chunked", "chunked prefill")
     x, _ = embed_inputs(params, cfg, inputs)
     B, S, _ = x.shape
     Bs = pool["k"].shape[1]
-    Hkvp, dh = cfg.padded_kv_heads, cfg.dh
-    nb = tables.shape[1]
-    W = nb * Bs
+    W = tables.shape[1] * Bs
     if B != 1:
         raise ValueError("paged prefill is per request (B=1)")
     if chunk_size % Bs:
@@ -1195,39 +1228,14 @@ def prefill_chunked_paged(params, cfg: ModelConfig, inputs, chunk_size: int,
                          f"of {chunk_size}")
     if S > W:
         raise ValueError(f"prompt {S} exceeds the table window {W}")
-    cb = chunk_size // Bs
-    pk, pv = pool["k"], pool["v"]
-    hmap = _head_map(cfg, x.device)
     out = x[:, :0]
     for lo in range(start, S, chunk_size):
         out = x[:, lo:lo + chunk_size]
-        positions = lo + torch.arange(chunk_size, device=x.device)[None, :]
-        ctx = lo + chunk_size
-        for p, tbl in zip(params["blocks"], tables):
-            with span("repro_torch.model.mixer"):
-                xn = L.rms_norm(out, p["attn_norm"], cfg.norm_eps)
-                q, k, v = _qkv(p, xn, cfg, positions)
-                wids = tbl[lo // Bs:lo // Bs + cb].long()
-                pk.index_copy_(0, wids,
-                               k[0].reshape(cb, Bs, Hkvp, dh).to(pk.dtype))
-                pv.index_copy_(0, wids,
-                               v[0].reshape(cb, Bs, Hkvp, dh).to(pv.dtype))
-                if impl == "kernel":
-                    _kernel_ok(cfg)
-                    live = tbl[:ctx // Bs].long()
-                    o = flash_attention(q.contiguous(),
-                                        pk[live].reshape(1, ctx, Hkvp, dh),
-                                        pv[live].reshape(1, ctx, Hkvp, dh),
-                                        causal=True, q_offset=lo)
-                else:
-                    kd = pk[tbl.long()].reshape(1, W, Hkvp, dh)
-                    vd = pv[tbl.long()].reshape(1, W, Hkvp, dh)
-                    mask = (torch.arange(W, device=x.device)[None, :]
-                            <= positions[0][:, None])
-                    o = _chunk_attend(q, L.expand_kv(kd, hmap),
-                                      L.expand_kv(vd, hmap), mask, cfg)
-                out = out + _attn_out(p, o.to(out.dtype), cfg)
-            out = _ffn(p, out, cfg)
+        attend = (lambda p, xn, cfg, st: attn_chunk_paged(
+            p, xn, cfg, pool["k"], pool["v"], st["table"], lo, impl=impl)[0])
+        for p, kind, st in _layer_views(cfg, params, {"table": tables},
+                                        ("table",)):
+            out, _ = _layer(p, out, cfg, kind, st, attend, impl)
     out = L.rms_norm(out, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, out[:, -1]), pool
 
@@ -1242,14 +1250,13 @@ def verify_chunk(params, cfg: ModelConfig, cache, tokens, start: int,
     ``attn_chunk``: on the card the flash kernel with k query rows at
     ``q_offset=start``. The attention family with a bf16 cache only, as
     the reference asserts."""
-    _check_attn(cfg, "the verify pass")
+    _check_takes(cfg, "chunked", "the verify pass")
     x, _ = embed_inputs(params, cfg, {"tokens": tokens})
     B, k, D = x.shape
-    for i, p in enumerate(params["blocks"]):
-        xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-        attn_out, _ = attn_chunk(p, xn, cfg, cache["k"][i], cache["v"][i],
-                                 start, impl=impl)
-        x = _ffn(p, x + attn_out, cfg)
+    attend = (lambda p, xn, cfg, st: attn_chunk(
+        p, xn, cfg, st["k"], st["v"], start, impl=impl)[0])
+    for p, kind, st in _layer_views(cfg, params, cache, ("k", "v")):
+        x, _ = _layer(p, x, cfg, kind, st, attend, impl)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, cfg, x.reshape(B * k, D)).reshape(B, k, -1)
     return logits, {**cache, "pos": torch.full_like(cache["pos"],
@@ -1271,23 +1278,11 @@ def _pad_aux(aux, device):
     return out
 
 
-def _layer_train(p, x, cfg: ModelConfig):
+def _layer_train(p, x, cfg: ModelConfig, kind: str):
     """One layer of the training forward: (x, MoE metrics padded with
-    zeros). An RWKV layer starts from the zero state, as a hybrid layer's
-    SSM does."""
-    if cfg.block == "rwkv":
-        state = rwkv6.init_rwkv_state(cfg, x.shape[0], device=x.device)
-        x, _ = rwkv6.rwkv_block(p, x, state, cfg, impl="plain")
-        return x, _zero_aux(x.device)
-    xn = L.rms_norm(x, p["attn_norm"], cfg.norm_eps)
-    y, _ = attn_full(p, xn, cfg, impl="xla")
-    if cfg.block == "hybrid":
-        ssm_out, _ = ssm.ssm_apply(
-            p["ssm"], xn, ssm.init_ssm_state(cfg, x.shape[0],
-                                             device=x.device), cfg,
-            impl="plain")
-        y = _hybrid_mix(p, y, ssm_out, cfg)
-    x, aux = _ffn_aux(p, x + y, cfg)
+    zeros). A recurrence starts from the zero state."""
+    x, aux = _layer(p, x, cfg, kind, {}, lambda p, xn, cfg, st: attn_full(
+        p, xn, cfg, impl="xla")[0], "plain")
     return x, _pad_aux(aux, x.device)
 
 
@@ -1298,16 +1293,17 @@ def forward_hidden(params, cfg: ModelConfig, inputs):
     backward pass (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` of its scan body). A jamba model serves only."""
     _check_family(cfg)
-    if cfg.block == "jamba":
+    if not _takes(cfg, "train"):
         raise NotImplementedError(f"{cfg.name}: training is not ported "
-                                  "for jamba blocks")
+                                  f"for {cfg.block} blocks")
     x, mask = embed_inputs(params, cfg, inputs)
     aux = _zero_aux(x.device)
-    for p in params["blocks"]:
+    for i, p in enumerate(params["blocks"]):
         if cfg.remat:
-            x, a = checkpoint(_layer_train, p, x, cfg, use_reentrant=False)
+            x, a = checkpoint(_layer_train, p, x, cfg, cfg.mixer(i),
+                              use_reentrant=False)
         else:
-            x, a = _layer_train(p, x, cfg)
+            x, a = _layer_train(p, x, cfg, cfg.mixer(i))
         aux = {k: aux[k] + a[k] for k in aux}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x, mask, {k: v / cfg.num_layers for k, v in aux.items()}

@@ -9,38 +9,35 @@ surface ``Cluster`` drives: ``prefill``, ``prefill_chunked``, ``insert``,
 ``slot_req``, ``prefix_cache``, ``paged`` and ``mean_step_s``.
 
 Decode batches continuously over fixed slots. Two KV layouts share that
-surface, as in ``repro.serving.engine``:
+surface, as in ``repro.serving.engine``; which one an engine takes, and
+whether it chunks prompts, is its model's (``transformer.supports_paged``,
+``supports_chunked``):
 
-- **paged** (the default where ``supports_paged``, i.e. the attention
-  family): KV lives in a block pool ``[num_blocks,
-  block_size, Hkvp, dh]`` shared by all layers and slots, addressed
-  through per-layer block tables (the host-side refcounts are
-  ``serving/blocks.py``). ``insert`` scatters only the request's blocks,
-  ``evict`` is an O(1) refcount decrement per block, decode attends over a
-  pow2-bucketed window that tracks the active context, and the prefix
-  cache shares blocks between entries by refcount, never by copy. A jamba
-  engine pages the KV of its attention layers alone (pool and tables
-  sized over them) and keeps beside the pool each slot's SSM state
-  (``ssm_h``/``conv``, ``transformer.init_slot_state``), allocated once:
-  its handoff carries the prompt's blocks and that state, ``insert``
-  copies the state into the slot's rows, and eviction leaves them for the
-  next insert to overwrite. It has no chunked prefill and no prefix
-  cache: a Mamba layer's state after a prefix is not kept.
-- **dense** (``paged=False``, and always for RWKV-6, the hybrid family
-  and kv-quant): one ``[slots, capacity]``-wide cache with per-slot
-  positions (int8 with bf16 scales per token and head under kv-quant, so
-  a handoff carries (1 + 2/dh) bytes per element against bf16's 2);
-  for RWKV-6 the per-slot recurrent state ``s``/``tm_x``/``cm_x``, which
-  is what the disaggregated handoff carries (O(1) per request, whatever
-  the prompt); for a hybrid model with a sliding window W (hymba-1.5b)
-  a W-row KV ring, whatever the capacity, and the SSM state
-  ``ssm_h``/``conv`` (O(W) per request, whatever the prompt).
+- **paged** (the default where the model supports it): KV lives in a
+  block pool ``[num_blocks, block_size, Hkvp, dh]`` shared by the
+  attending layers and the slots, addressed through per-layer block tables
+  (the host-side refcounts are ``serving/blocks.py``). ``insert`` scatters
+  only the request's blocks, ``evict`` is an O(1) refcount decrement per
+  block, decode attends over a pow2-bucketed window that tracks the
+  active context, and the prefix cache shares blocks between entries by
+  refcount, never by copy. A state the model keeps per slot (a jamba
+  model's ``ssm_h``/``conv``, ``transformer.init_slot_state``) sits
+  beside the pool, allocated once: the handoff carries it with the
+  prompt's blocks, ``insert`` copies it into the slot's rows, and
+  eviction leaves them for the next insert to overwrite. Such a model's
+  prompts run whole: no chunked prefill, no prefix cache.
+- **dense** (``paged=False``, and always where the model has no paged
+  layout: RWKV-6, the hybrid family, kv-quant): one ``[slots,
+  capacity]``-wide cache of what the model keeps per layer and slot
+  (``transformer.init_cache``), with per-slot positions: int8 K/V with
+  bf16 scales under kv-quant ((1 + 2/dh) bytes per element against bf16's
+  2), RWKV-6's recurrent state (O(1) per request), a windowed hybrid
+  model's W-row ring and SSM state (O(W)), whatever the prompt.
 
 ``prefill_chunked`` runs the prompt in chunks (the co-located piggyback
-path) and, for an attention-family engine built with ``chunk_size``,
-consults and fills a ``PrefixCache``; RWKV-6 and hybrid prompts are never
-chunked (``transformer.prefill_chunked`` refuses them, as the reference
-asserts).
+path) and, where the model takes chunked prefill and the engine was built
+with ``chunk_size``, consults and fills a ``PrefixCache``; the model
+refuses any other prompt in chunks, as the reference asserts.
 As in the reference, a prompt is padded with token 0 to whole chunks, and
 the padded prompt is what the model sees: the first token is read at its
 last position, and decoding continues after the pad.
@@ -220,13 +217,13 @@ class Engine:
             raise ValueError(f"paged chunked prefill needs chunk_size "
                              f"({chunk_size}) % block_size ({block_size}) "
                              "== 0")
-        if chunk_size and cfg.block == "jamba":
-            raise ValueError(f"{cfg.name}: a jamba model's prompts run "
+        with_prefix = bool(chunk_size) and T.supports_chunked(cfg)
+        if chunk_size and self.paged and not with_prefix:
+            raise ValueError(f"{cfg.name}: a {cfg.block} model's prompts run "
                              "whole: no chunked prefill, no prefix cache")
         self._free = list(range(slots))
         self.slot_req: Dict[int, Any] = {}
         self._graphs: Optional[DecodeGraphs] = None
-        with_prefix = bool(chunk_size) and cfg.block == "attn"
         # the layers whose KV the pool pages
         self._kv_layers = len(cfg.attn_layer_ids)
         if self.paged:
@@ -237,8 +234,9 @@ class Engine:
                 pool_blocks = 1 + Lr * self._nb_max * (slots + 4)
             self.pool = T.init_block_pool(cfg, pool_blocks, block_size,
                                           device=self.device)
-            self.pool.update(T.init_slot_state(cfg, slots,
-                                               device=self.device))
+            state = T.init_slot_state(cfg, slots, device=self.device)
+            self.pool.update(state)
+            self._state_keys = tuple(state)
             self._alloc = BlockAllocator(pool_blocks)
             self._tables = np.zeros((Lr, slots, self._nb_max), np.int32)
             self._pos = np.zeros((slots,), np.int32)
@@ -396,9 +394,8 @@ class Engine:
                         dim=1)
                 blocks[kk] = row.reshape(row.shape[0], Sb // Bs, Bs,
                                          *row.shape[2:])
-            if "ssm_h" in cache:                # a jamba model's state
-                state["ssm_h"] = cache["ssm_h"][:, 0]
-                state["conv"] = cache["conv"][:, 0]
+            for kk in self._state_keys:
+                state[kk] = cache[kk][:, 0]
         return logits, blocks, state
 
     def _first_token(self, logits) -> int:

@@ -375,3 +375,22 @@ def test_launcher_sim_takes_the_new_ids_at_full_size(arch, tmp_path,
                       "--isl", "512", "--osl", "16", "--calibration-path",
                       str(tmp_path / "none.json")])
     assert rec["completed"] == 4 and rec["arch"] == arch
+
+
+def test_the_engine_and_the_launcher_never_name_a_model_family():
+    """Which layouts and paths a model takes is the model's
+    (``transformer.supports_paged``, ``supports_chunked``): the serving
+    engine and the launcher never compare a configuration's ``block`` with
+    a family's name."""
+    for rel in ("serving/engine.py", "launch/serve.py"):
+        for node in ast.walk(ast.parse((PORT / rel).read_text())):
+            if not isinstance(node, ast.Compare):
+                continue
+            sides = [node.left, *node.comparators]
+            if not any(isinstance(s, ast.Attribute) and s.attr == "block"
+                       for s in sides):
+                continue
+            names = [c.value for s in sides for c in ast.walk(s)
+                     if isinstance(c, ast.Constant)
+                     and isinstance(c.value, str)]
+            assert not names, f"{rel}:{node.lineno}: block == {names}"

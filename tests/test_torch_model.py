@@ -29,12 +29,12 @@ from repro.configs import get_smoke_config as jax_get_smoke
 from repro.models import layers as JL
 from repro.models import rwkv6 as JR
 from repro.models import transformer as JT
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.convert import from_reference
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
-from repro_torch.models.config import MoEConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 
 TOL = 1e-4
 Bs = 8
@@ -618,3 +618,59 @@ def test_rwkv_refuses_chunked_prefill_and_paging():
         T.prefill_chunked_paged(p, cfg, {"tokens": tokens}, 8, {}, None)
     with pytest.raises(ValueError, match="paged layout"):
         T.decode_step_paged(p, cfg, {}, None, None, tokens[:, 0])
+
+
+def _jamba_smoke():
+    # one period of Jamba's 8 layers: attention in layer 4, experts in the
+    # odd layers
+    return ModelConfig(
+        name="jamba-smoke", family="hybrid", num_layers=8, d_model=64,
+        num_heads=4, num_kv_heads=2, d_ff=96, vocab_size=128,
+        dtype="bfloat16", block="jamba", attn_layer_period=8,
+        attn_layer_offset=4, expert_layer_period=2, expert_layer_offset=1,
+        rope=False, ssm_expand=2, ssm_dt_rank=4, ssm_conv_bias=True,
+        moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=48,
+                      capacity_factor=8.0, router_experts=16,
+                      renormalize=False))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS + ("jamba-smoke",))
+def test_the_table_of_mixers_agrees_with_every_cache(arch):
+    """Each layer's kind (``ModelConfig.mixer``) names an entry of
+    ``MIXERS`` and agrees with the attention and Mamba-1 layer ids; the
+    entries each layer's mixer keeps, stacked over the layers that keep
+    them, are what ``init_slot_state``, ``init_cache`` and a prefill's
+    cache hold, for the full configuration (on the meta device) and the
+    smoke one."""
+    cfgs = ((_jamba_smoke(),) if arch == "jamba-smoke"
+            else (get_config(arch), get_smoke_config(arch)))
+    for cfg in cfgs:
+        kinds = [cfg.mixer(i) for i in range(cfg.num_layers)]
+        assert set(kinds) <= set(T.MIXERS), kinds
+        assert cfg.attn_layer_ids == tuple(
+            i for i, k in enumerate(kinds) if T.MIXERS[k].attends)
+        assert cfg.mamba_layer_ids == tuple(
+            i for i, k in enumerate(kinds) if k == "mamba")
+        kv = ("k", "v") + (("k_scale", "v_scale") if cfg.kv_quant else ())
+        depth = {}
+        for k in kinds:
+            for key in (kv if T.MIXERS[k].attends else ()) + \
+                    T.MIXERS[k].state:
+                depth[key] = depth.get(key, 0) + 1
+        assert T.cache_stacks(cfg) == depth
+        slot = T.init_slot_state(cfg, 3, device="meta")
+        assert {k: tuple(t.shape[:2]) for k, t in slot.items()} == {
+            k: (n, 3) for k, n in depth.items() if k not in kv}
+        if all("dense" in T.MIXERS[k].paths for k in kinds):
+            cache = T.init_cache(cfg, 3, 8, device="meta")
+            assert {k: tuple(t.shape[:2]) for k, t in cache.items()
+                    if k != "pos"} == {k: (n, 3) for k, n in depth.items()}
+        else:
+            with pytest.raises(ValueError, match="paged layout only"):
+                T.init_cache(cfg, 3, 8, device="meta")
+    # the smoke configuration, the loop's last, at its ``depth``
+    params = T.init_params(cfg, 0, device="cpu")
+    _, cache = T.prefill_full(params, cfg, {"tokens": torch.zeros(
+        (2, 8), dtype=torch.long)}, impl="plain")
+    assert {k: tuple(t.shape[:2]) for k, t in cache.items()
+            if k != "pos"} == {k: (n, 2) for k, n in depth.items()}
