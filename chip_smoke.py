@@ -33,7 +33,15 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
      and 2,048 at d_inner 8,192, a delta per channel) and hymba's (S =
      512 at 1,600, one shared delta), from a nonzero state, within
      SCAN_RTOL of each row's norm, then timed beside the plain scan and
-     the bound (no PyTorch call computes the recurrence);
+     the bound (no PyTorch call computes the recurrence); the MoE FFN
+     alone at the jamba cell's shapes (one layer: d 4,096, 8 held of 16
+     experts of 14,336, top-2, prompts of 256 to 2,048 tokens) and the
+     granite cell's (d 1,024, 32 experts of 512, top-8, prompts of 2,048
+     to 32,768), the grouped dispatch against the padded one within
+     MOE_RTOL of the output's scale and relaunched bit-equal, both timed
+     by CUDA events beside the bound (the held experts' weights read once
+     at 3.35 TB/s; the routed rows' FLOPs at 989 TFLOP/s) and beside
+     ``grouped_pays``'s choice;
   4. model: full-width qwen2.5-3b (36 layers, bf16, random weights from
      seed 0), prefill and paged decode steps with the kernels, with the
      plain path, and with the plain path in float32 on the same weights,
@@ -261,8 +269,10 @@ as often, and fails unless each bf16 path run twice gives bit-equal
 logits.
 
 Every path (5-8, 10, 12-14, 16, 19, 22, 25, 27, 28, 30-32, 34) runs with
-every kernel's launch count set to 0 just before it and read just after;
-each phase prints its seconds.
+every kernel's launch count and the MoE's grouped calls
+(``moe.grouped_calls``) set to 0 just before it and read just after; no
+path prefills a long MoE prompt, so each must count no grouped call. Each
+phase prints its seconds.
 
 The last three lines of standard output are the card's name and power
 limit, the ``{"kernels": [...]}`` record and ``{"ok": true, "device":
@@ -303,6 +313,15 @@ WKV_RTOL = 1e-4
 # relative to each output row's norm
 SCAN_RTOL = 1e-4
 SCAN_STATE = 16                         # the SSM state size of both models
+# the MoE FFN's grouped dispatch against the padded one: both round h, u
+# and the expert output to bf16 at the same points and differ only in
+# the products' accumulation order, so a value may differ by one bf16
+# unit (2^-8) in any of them: two units of the output's scale
+MOE_RTOL = 2 ** -7
+# the jamba and granite cells' MoE layers: d_model, expert width, held
+# experts, the router's experts, top-k
+JAMBA_MOE = (4096, 14336, 8, 16, 2)
+GRANITE_MOE = (1024, 512, 32, 32, 8)
 L2_BYTES = 50 << 20                     # H100 SXM L2 cache
 # the serve paths' traffic (phases 5, 10, 13 and 14)
 SERVE_ARGS = ["--requests", "16", "--isl", "512", "--osl", "64", "--slots",
@@ -805,6 +824,79 @@ def scan_phase(torch, dev, gen, timer):
     row["jamba_2048"] = time_scan("jamba_2048")
     row["hymba_512"] = time_scan("hymba_512")
     return err_max, row
+
+
+def moe_phase(torch, dev, gen, timer):
+    """The MoE FFN alone, one layer in bf16 at the port's initialiser's
+    scales: at the jamba cell's shapes (``JAMBA_MOE``) for prompts of 256
+    to 2,048 tokens, and at the granite cell's (``GRANITE_MOE``) for
+    prompts of 2,048 to 32,768, on both sides of ``grouped_pays``'s line.
+    At each: the grouped dispatch against the padded one within MOE_RTOL
+    of the output's scale, the same drops, a relaunch bit-equal; each
+    timed by CUDA events beside the bound: the held experts' weights read
+    once, and the routed rows' three products (2 x 3 x N x D x F FLOPs, N
+    the pairs routed to a held expert); the rule's choice beside the
+    faster way. The rule must take the grouped way for the jamba cell's
+    prompts (512 to 2,048 tokens). Returns {(model, tokens): timings}."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import MoEConfig
+    out = {}
+    for model, (D, F_, E, routed, k), lengths in (
+            ("jamba", JAMBA_MOE, (256, 448, 512, 1024, 2048)),
+            ("granite", GRANITE_MOE, (2048, 4096, 16384, 32768))):
+        # jamba's gates are not renormalised over the held half
+        cfg = MoEConfig(num_experts=E, top_k=k, d_ff_expert=F_,
+                        capacity_factor=routed / k, router_experts=routed,
+                        renormalize=model == "granite")
+
+        def draw(shape, scale, dtype=torch.bfloat16):
+            return (torch.randn(shape, generator=gen, device=dev) * scale
+                    ).to(dtype)
+        w = (draw((D, routed), 0.02, torch.float32),
+             draw((E, D, F_), D ** -0.5), draw((E, D, F_), D ** -0.5),
+             draw((E, F_, D), F_ ** -0.5))
+        padded = functools.partial(moe._local_moe, cfg=cfg)
+        grouped = functools.partial(moe._local_moe, cfg=cfg, grouped=True)
+        with torch.inference_mode():
+            for T in lengths:
+                x = draw((T, D), 1.0)
+                pays = moe.grouped_pays(x, cfg)
+                if model == "jamba" and T >= 512 and not pays:
+                    fail(f"moe: a {T}-token jamba prompt would stay padded")
+                want, want_aux = padded(x, *w)
+                got, got_aux = grouped(x, *w)
+                again = grouped(x, *w)[0]
+                torch.cuda.synchronize()
+                scale = max(want.abs().max().item(), 1.0)
+                err = (got - want).abs().max().item() / scale
+                same = torch.equal(got, again)
+                drops = (got_aux["moe_dropped"].item(),
+                         want_aux["moe_dropped"].item())
+                if not (err <= MOE_RTOL and same and drops[0] == drops[1]):
+                    fail(f"moe {model} T={T}: grouped against padded "
+                         f"{err:.3e} of the scale, relaunch equal {same}, "
+                         f"dropped {drops}")
+                mask = moe._route(x, w[0], cfg)[1]
+                N = int(mask[:, :E].sum().item())
+                flops = 2.0 * 3 * N * D * F_
+                nbytes = 3.0 * E * D * F_ * 2
+                res = {"padded_ms": timer(padded, [(x, *w)]),
+                       "grouped_ms": timer(grouped, [(x, *w)]),
+                       "routed_rows": N,
+                       "bytes_ms": nbytes / PEAK_HBM_BYTES * 1e3,
+                       "flops_ms": flops / PEAK_BF16_FLOPS * 1e3,
+                       "max_err_of_scale": err,
+                       "rule": "grouped" if pays else "padded"}
+                res["faster"] = ("grouped" if res["grouped_ms"]
+                                 < res["padded_ms"] else "padded")
+                res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+                log(f"# moe time {model} T={T}: " + json.dumps(res))
+                out[model, T] = res
+                del x, want, got, again
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def hymba_kernels(torch, dev, gen, fl_ops, dec_ops, flash_ref,
@@ -2989,6 +3081,7 @@ def main() -> None:
     from repro_torch.kernels.rwkv6 import ops as wkv_ops
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.launch import serve
+    from repro_torch.models import moe
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -3338,6 +3431,16 @@ def main() -> None:
     scan_err, rows["scan"] = scan_phase(torch, dev, gen_scan, timer)
     log(f"# phase kernels (scan): {time.perf_counter() - t0:.1f} s")
 
+    # 3f'') the MoE FFN at the jamba and granite cells' shapes, grouped
+    #       against padded, from a generator of its own
+    t0 = time.perf_counter()
+    gen_moe = torch.Generator(device=dev)
+    gen_moe.manual_seed(33)
+    moe_phase(torch, dev, gen_moe, timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"# phase moe: {time.perf_counter() - t0:.1f} s")
+
     # 3g) hymba-1.5b's heads (25/5 of 64, G = 5): flash without and with
     #     its window of 1024, dense decode over its 1024-row ring
     #     (from a generator of its own, and timed from it: a phase added
@@ -3424,26 +3527,34 @@ def main() -> None:
                 "dense": dec_ops.decode_attention,
                 "wkv": wkv_ops.wkv,
                 "scan": scan_ops.selective_scan}
-    by_path = {}
+    by_path, grouped_by_path = {}, {}
 
     def drive(path, fn):
-        """Run one path with every launch count set to 0 just before it and
-        read just after; returns (its result, its launch counts). What an
-        earlier path left in reference cycles (its engines, its weights) is
-        collected first, so the peak memory printed is this path's."""
+        """Run one path with every launch count and the MoE's grouped calls
+        set to 0 just before it and read just after; returns (its result,
+        its launch counts). What an earlier path left in reference cycles
+        (its engines, its weights) is collected first, so the peak memory
+        printed is this path's. No path prefills a long MoE prompt, so a
+        grouped call fails it."""
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        moe.grouped_calls = 0
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         n = {name: c.launches for name, c in counters.items()}
         by_path[path] = n
+        grouped_by_path[path] = moe.grouped_calls
         log(f"# phase {path}: {time.perf_counter() - t0:.1f} s wall, "
-            f"launches {n}, max_memory_allocated "
+            f"launches {n}, moe grouped calls {moe.grouped_calls}, "
+            f"max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if moe.grouped_calls:
+            fail(f"{path}: {moe.grouped_calls} MoE calls took the grouped "
+                 "dispatch, where no prompt is long enough")
         return out, n
 
     def sla(rec):
@@ -3712,6 +3823,7 @@ def main() -> None:
     ]
     for k, key in zip(kernels, ("flash", "paged", "dense", "wkv", "scan")):
         k["launches_by_path"] = {path: n[key] for path, n in by_path.items()}
+    log("# moe grouped calls by path: " + json.dumps(grouped_by_path))
     log(f"# total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

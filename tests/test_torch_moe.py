@@ -17,6 +17,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -236,6 +237,170 @@ def test_moe_ffn_in_bf16_rounds_where_the_reference_does():
     assert float(taux["moe_dropped"]) == float(jaux["moe_dropped"])
     _close(ty.float(), np.asarray(jy.astype(jnp.float32)), "bf16 y",
            tol=2 ** -7)
+
+
+# the grouped dispatch's cases: (MoEConfig keywords, first expert held,
+# tokens; the router pushed by one feature: expert -> logit weight)
+GROUPED = {
+    "dropless": (dict(num_experts=8, top_k=2, d_ff_expert=16,
+                      capacity_factor=4.0), 0, 40, {}),
+    "drops": (DROPPY, 0, 40, {}),
+    "jamba_held_0_7": (dict(num_experts=8, top_k=2, d_ff_expert=16,
+                            capacity_factor=8.0, router_experts=16,
+                            renormalize=False), 0, 48, {}),
+    "jamba_held_8_15": (dict(num_experts=8, top_k=2, d_ff_expert=16,
+                             capacity_factor=8.0, router_experts=16,
+                             first_expert=8, renormalize=False), 8, 48, {}),
+    "top1": (dict(num_experts=8, top_k=1, d_ff_expert=16,
+                  capacity_factor=8.0), 0, 40, {}),
+    "top8": (dict(num_experts=16, top_k=8, d_ff_expert=16,
+                  capacity_factor=2.0), 0, 24, {}),
+    "an_expert_without_rows": (dict(num_experts=8, top_k=2, d_ff_expert=16,
+                                    capacity_factor=4.0), 0, 40, {3: -100.0}),
+    "every_pair_to_one_expert": (dict(num_experts=8, top_k=1,
+                                      d_ff_expert=16, capacity_factor=8.0),
+                                 0, 40, {5: 100.0}),
+    "one_expert_over_capacity": (dict(num_experts=8, top_k=1,
+                                      d_ff_expert=16, capacity_factor=2.0,
+                                      min_capacity=1), 0, 40, {5: 100.0}),
+}
+
+
+@pytest.mark.parametrize("combine_fp32", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(GROUPED))
+def test_grouped_dispatch_matches_reference(case, dtype, combine_fp32):
+    """``_local_moe(grouped=True)`` (each held expert over its kept rows
+    only) against the JAX package's ``_local_moe`` on the same inputs: the
+    same token -> expert mask and dropped count exactly, the losses and
+    the output within TOL of their scale in float32 and within the bf16
+    tolerance of ``test_moe_ffn_in_bf16_rounds_where_the_reference_does``
+    in bfloat16. Jamba's held half (a router over 16 experts, 8 held, the
+    gates not renormalised) has no counterpart there: those cases hold
+    the grouped call to the port's padded one, the same drops and losses
+    exactly and the output within 1e-6 of its scale in float32 (the
+    products' summation order is all that differs). One grouped call is
+    counted."""
+    kw, e_off, T_, push = GROUPED[case]
+    m = MoEConfig(**kw)
+    x, w = _moe_inputs(m, T_, 32, 6)
+    router = np.random.default_rng(7).standard_normal(
+        (32, m.routed)).astype(np.float32) * 0.5
+    x[:, 0] = 10.0
+    for e, v in push.items():
+        router[0, e] = v
+    dt = getattr(torch, dtype)
+    args = (_t(x).to(dt), _t(router),
+            *(_t(w[k]).to(dt) for k in ("wg", "wu", "wd")))
+    before = M.grouped_calls
+    got, got_aux = M._local_moe(*args, cfg=m, combine_fp32=combine_fp32,
+                                e_off=e_off, grouped=True)
+    assert M.grouped_calls == before + 1
+    mask = M._route(args[0], args[1], m)[1]
+    if case == "an_expert_without_rows":
+        assert int(mask[:, 3].sum()) == 0
+    if case.startswith("every_pair") or case.startswith("one_expert"):
+        assert int(mask[:, 5].sum()) == T_
+    if case in ("drops", "one_expert_over_capacity"):
+        assert float(got_aux["moe_dropped"]) > 0
+    assert got.dtype == (torch.float32 if combine_fp32 else dt)
+    assert tuple(got.shape) == (T_, 32)
+    bf16 = dtype == "bfloat16"
+    if case.startswith("jamba"):
+        want, want_aux = M._local_moe(*args, cfg=m, e_off=e_off,
+                                      combine_fp32=combine_fp32)
+        for k in ("moe_dropped", "moe_aux_loss", "moe_z_loss"):
+            assert torch.equal(got_aux[k], want_aux[k]), k
+        _close(got.float(), _np(want.float()), f"grouped {case}",
+               tol=2 ** -7 if bf16 else 1e-6)
+        return
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jx = jnp.asarray(x).astype(jdt)
+    jcfg = JMoEConfig(**kw)
+    jmask = JM._route(jx, jnp.asarray(router), jcfg)[1]
+    np.testing.assert_array_equal(_np(mask), np.asarray(jmask))
+    jy, jaux = JM._local_moe(
+        jx, jnp.asarray(router),
+        *(jnp.asarray(w[k]).astype(jdt) for k in ("wg", "wu", "wd")),
+        cfg=jcfg, ep_axis=None, dp_axes=(), combine_fp32=combine_fp32)
+    assert float(got_aux["moe_dropped"]) == float(jaux["moe_dropped"])
+    tol = 2 ** -7 if bf16 else TOL
+    _close(got.float(), np.asarray(jy.astype(jnp.float32)),
+           f"grouped {case}", tol=tol)
+    for k in ("moe_aux_loss", "moe_z_loss"):
+        _close(got_aux[k], jaux[k], k, tol=tol)
+
+
+JAMBA_MOE = MoEConfig(num_experts=8, top_k=2, d_ff_expert=14336,
+                      capacity_factor=8.0, router_experts=16,
+                      renormalize=False)
+GRANITE_CELL_MOE = MoEConfig(num_experts=32, top_k=8, d_ff_expert=512,
+                             capacity_factor=4.0)
+
+
+@pytest.mark.parametrize("what,moe,D,T_,cuda,grad,capturing,want", [
+    ("jamba prompt 256", JAMBA_MOE, 4096, 256, True, False, False, False),
+    ("jamba prompt 325", JAMBA_MOE, 4096, 325, True, False, False, False),
+    ("jamba prompt 326", JAMBA_MOE, 4096, 326, True, False, False, True),
+    ("jamba prompt 448", JAMBA_MOE, 4096, 448, True, False, False, True),
+    ("jamba prompt 512", JAMBA_MOE, 4096, 512, True, False, False, True),
+    ("jamba prompt 1024", JAMBA_MOE, 4096, 1024, True, False, False, True),
+    ("jamba prompt 2048", JAMBA_MOE, 4096, 2048, True, False, False, True),
+    ("jamba decode 64", JAMBA_MOE, 4096, 64, True, False, True, False),
+    ("jamba decode 64 eager", JAMBA_MOE, 4096, 64, True, False, False,
+     False),
+    ("granite prompt 32", GRANITE_CELL_MOE, 1024, 32, True, False, False,
+     False),
+    ("granite prompt 128", GRANITE_CELL_MOE, 1024, 128, True, False, False,
+     False),
+    ("granite decode 256", GRANITE_CELL_MOE, 1024, 256, True, False, True,
+     False),
+    ("granite prompt 2048", GRANITE_CELL_MOE, 1024, 2048, True, False,
+     False, False),
+    ("granite prompt 4096", GRANITE_CELL_MOE, 1024, 4096, True, False,
+     False, True),
+    ("granite prompt 16384", GRANITE_CELL_MOE, 1024, 16384, True, False,
+     False, True),
+    ("jamba prompt 1024 on the cpu", JAMBA_MOE, 4096, 1024, False, False,
+     False, False),
+    ("jamba prompt 1024 with grad", JAMBA_MOE, 4096, 1024, True, True,
+     False, False),
+    ("jamba prompt 1024 under capture", JAMBA_MOE, 4096, 1024, True, False,
+     True, False),
+])
+def test_grouped_pays_where_the_padded_product_is_compute_bound(
+        monkeypatch, what, moe, D, T_, cuda, grad, capturing, want):
+    """``grouped_pays`` at the cells' shapes and on both sides of its
+    lines: a dropless prompt (C = T) on the card takes the grouped
+    dispatch where the padded expert product is compute-bound (Jamba from
+    326 tokens, granite from 2,186; on the card the grouped way is the
+    faster from 256 tokens on for Jamba, and from between 2,048 and 4,096
+    for granite); a decode step, a
+    short prompt, the CPU, autograd and a graph capture keep the padded
+    path. The tokens stand in for a card's tensor (``is_cuda`` and the
+    shape are all the rule reads of them)."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    x = (types.SimpleNamespace(is_cuda=True, shape=(T_, D)) if cuda
+         else torch.zeros((T_, D)))
+    assert M.expert_capacity(T_, moe) == T_, what   # dropless
+    with torch.set_grad_enabled(grad):
+        assert M.grouped_pays(x, moe) is want, what
+
+
+def test_moe_ffn_keeps_the_padded_path_on_the_cpu(monkeypatch):
+    """On the CPU ``moe_ffn`` never takes the grouped dispatch, whatever
+    the shape: the count stays, and the output is the padded call's."""
+    m = MoEConfig(num_experts=8, top_k=2, d_ff_expert=16,
+                  capacity_factor=4.0)
+    x, w = _moe_inputs(m, 40, 32, 8)
+    before = M.grouped_calls
+    with torch.inference_mode():
+        y, _ = M.moe_ffn(_t(x)[None], {k: _t(v) for k, v in w.items()}, m)
+        want, _ = M._local_moe(_t(x), *(_t(w[k]) for k in (
+            "router", "wg", "wu", "wd")), cfg=m)
+    assert M.grouped_calls == before
+    assert torch.equal(y[0], want)
 
 
 def test_init_params_and_convert_keep_moe_layout():
